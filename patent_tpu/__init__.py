@@ -1,13 +1,14 @@
-"""patent_tpu — a TPU-native patent-image retrieval framework.
+"""patent_tpu — a patent-image retrieval framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 ``Alvarodelamaza/patent-image-retrieval`` (CLIP image encoder fine-tuned with
 graph alignment + hyperbolic (Poincaré-ball) projection + exact retrieval
-with a full metric battery), built TPU-first:
+with a full metric battery), run on NVIDIA GPUs:
 
-* ``ops``       — Poincaré-ball geometry core (pure-JAX + fused Pallas kernels).
-* ``models``    — Flax modules: ViT image encoder, GCN/VGAE graph encoders,
-                  Möbius layers and hyperbolic embedding models.
+* ``ops``       — Poincaré-ball geometry core, attention, int8 matmuls.
+* ``models``    — ViT image/text encoders (plain JAX); GCN/VGAE graph
+                  encoders, Möbius layers and hyperbolic embedding models
+                  (Flax linen).
 * ``losses``    — vectorized contrastive / prototype / hierarchy losses.
 * ``train``     — jitted per-method training engines + Riemannian optax.
 * ``retrieval`` — sharded exact top-k embedding index over a device mesh.

@@ -174,7 +174,7 @@ def process_patent_graph(adjacency_path: str, features_path: str):
     (X float32, A_tilde float32) ready for the GCN trainers."""
     import jax.numpy as jnp
 
-    from ..models.gcn import normalize_adjacency
+    from ..models.adjacency import normalize_adjacency
 
     x, adj = load_graph(adjacency_path, features_path)
     a_tilde = np.asarray(normalize_adjacency(jnp.asarray(adj)))

@@ -1,7 +1,9 @@
 """ctypes bindings for the native data-loader (native/patent_io.cc).
 
-Loads ``libpatent_io.so`` (auto-building it with native/build.sh if g++ is
-available), exposing:
+Loads ``libpatent_io.so`` from ``native/build/<key>/``, building it with
+native/build.sh (g++, ``-march=native``) on first use.  ``<key>`` hashes the
+source, the build script, the machine type and the CPU's feature flags, so
+a library built on another host is never loaded.  Exposes:
 
 * ``native_available()`` — whether the fast path is usable,
 * ``decode_image_native(path, size)`` — one image → CLIP-normalized
@@ -16,7 +18,9 @@ PIL path per image, preserving the skip policy (src/models.py:51-66).
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 
 import numpy as np
@@ -30,10 +34,34 @@ _MEAN = np.ascontiguousarray(CLIP_MEAN, np.float32)
 _INV_STD = np.ascontiguousarray(1.0 / CLIP_STD, np.float32)
 
 
+_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "native")
+
+
+def _cpu_flags() -> str:
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("flags"):
+                    return line
+    except OSError:
+        pass
+    return platform.processor()
+
+
+def build_key() -> str:
+    """Hash of the source, the build script and this host's CPU."""
+    h = hashlib.sha256()
+    for name in ("patent_io.cc", "build.sh"):
+        with open(os.path.join(_NATIVE_DIR, name), "rb") as f:
+            h.update(f.read())
+    h.update(platform.machine().encode())
+    h.update(_cpu_flags().encode())
+    return h.hexdigest()[:16]
+
+
 def _lib_path() -> str:
-    root = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    return os.path.join(root, "native", "libpatent_io.so")
+    return os.path.join(_NATIVE_DIR, "build", build_key(), "libpatent_io.so")
 
 
 def _load():
@@ -43,13 +71,12 @@ def _load():
     _TRIED = True
     path = _lib_path()
     if not os.path.exists(path):
-        build = os.path.join(os.path.dirname(path), "build.sh")
-        if os.path.exists(build):
-            try:
-                subprocess.run(["/bin/sh", build], check=True,
-                               capture_output=True, timeout=120)
-            except Exception:
-                return None
+        try:
+            subprocess.run(["/bin/sh", os.path.join(_NATIVE_DIR, "build.sh"),
+                            path], check=True, capture_output=True,
+                           timeout=120)
+        except (OSError, subprocess.SubprocessError):
+            return None
     if not os.path.exists(path):
         return None
     try:

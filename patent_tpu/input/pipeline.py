@@ -52,10 +52,12 @@ def list_images(folder: str) -> list[str]:
 
 
 def decode_image(path: str, image_size: int = IMAGE_SIZE) -> np.ndarray | None:
-    """Decode one image → [H, W, 3] float32, CLIP-normalized; None on failure."""
-    try:
-        from PIL import Image
+    """Decode one image → [H, W, 3] float32, CLIP-normalized; None when the
+    file cannot be decoded.  A missing decoder (PIL) raises ImportError:
+    turning it into None would silently empty a whole gallery."""
+    from PIL import Image
 
+    try:
         with Image.open(path) as im:
             im = im.convert("RGB")  # handles gray + RGBA like models.py:84-89
             im = im.resize((image_size, image_size), Image.BILINEAR)
@@ -71,12 +73,10 @@ def decode_image_u8(path: str, image_size: int = IMAGE_SIZE
     """Decode one image → [H, W, 3] uint8 RGB (no normalization); None on
     failure.  Pairs with a device-side ``(x/255 − mean)/std`` (see
     retrieval.engine.make_device_normalizing_encoder): uint8 batches are 4×
-    smaller on the host→device link, which is the encode bottleneck on
-    constrained links (measured 38 MB/s wire here → 63 img/s f32 vs 154
-    u8)."""
-    try:
-        from PIL import Image
+    smaller on the host→device link.  A missing PIL raises ImportError."""
+    from PIL import Image
 
+    try:
         with Image.open(path) as im:
             im = im.convert("RGB")
             im = im.resize((image_size, image_size), Image.BILINEAR)

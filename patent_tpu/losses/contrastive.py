@@ -3,7 +3,7 @@
 All are fully vectorized — the reference builds its n×n hyperbolic distance
 matrix with a double Python loop of single-pair ``pmath.dist`` calls
 (src/train.py:2312-2320, 1832-1840), here it is one ``pairwise_dist`` (a
-Gram matmul on the MXU + elementwise tail).
+Gram matmul + elementwise tail).
 """
 
 from __future__ import annotations

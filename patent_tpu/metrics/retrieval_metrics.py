@@ -13,7 +13,7 @@ numbers (BASELINE.md) were produced by them:
   (cell 3 ``count += 1; continue``).
 
 Metrics are computed host-side in numpy from ranked name lists; producing the
-rankings at scale is the job of ``patent_tpu.retrieval`` (sharded TPU top-k).
+rankings at scale is the job of ``patent_tpu.retrieval`` (sharded top-k).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Hyperbolic (Poincaré-ball) Flax modules.
 
-TPU-first re-design of the reference's hyperbolic model family
+Re-design of the reference's hyperbolic model family
 (src/models.py:255-318 MobiusLinear/mobius_linear, 355-445 HMI, 447-505
 DeeperHyperbolicEncoder, 507-784 HyperbolicEmbeddingModel, 788-838
 FigureOnlyHyperbolicModel): parameters live in flax pytrees, every forward is

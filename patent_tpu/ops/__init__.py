@@ -1,4 +1,4 @@
-"""TPU compute kernels: Poincaré geometry, horosphere predicates, Pallas kernels."""
+"""Compute ops: Poincaré geometry, horosphere predicates, attention, int8 matmuls."""
 
 from .poincare import (  # noqa: F401
     MIN_NORM,
@@ -30,5 +30,3 @@ from .horosphere import (  # noqa: F401
     insideness,
     insideness_unit,
 )
-from .pallas_kernels import mobius_dense_pallas, pairwise_dist_pallas  # noqa: F401
-from .flash_attention import flash_attention  # noqa: F401

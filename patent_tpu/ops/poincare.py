@@ -2,10 +2,9 @@
 
 Pure-JAX, fully vectorized re-derivation of the hyperbolic operations the
 reference delegates to ``geoopt.manifolds.stereographic.math`` (reference:
-src/models.py:7, src/train.py:<many pmath.* call sites>).  Everything here is
-written for TPU: static shapes, no data-dependent control flow, batched
-formulations that map matmuls onto the MXU and keep elementwise tails fusable
-by XLA.
+src/models.py:7, src/train.py:<many pmath.* call sites>).  Everything here
+has static shapes, no data-dependent control flow, and batched formulations
+that turn the work into matmuls with elementwise tails XLA can fuse.
 
 Conventions
 -----------
@@ -23,7 +22,7 @@ The pairwise distance uses the closed form
 
 which is mathematically identical to geoopt's
 ``2/sqrt(c) * artanh(sqrt(c) ‖(−x)⊕y‖)`` form but costs one Gram matrix
-(MXU) plus elementwise tail instead of materializing Möbius additions —
+plus elementwise tail instead of materializing Möbius additions —
 this replaces the reference's O(n²) Python double loops of single-pair
 ``pmath.dist`` calls (src/train.py:1433-1452, 2312-2320, 1832-1840).
 """
@@ -59,7 +58,7 @@ def _norm(x: jax.Array, keepdims: bool = True) -> jax.Array:
     The smoothing (vs a max-clamp) matters for GRADIENTS at x ≈ 0: the
     max-clamp backward computes v/‖v‖ which is NaN/∞ at the cancellation
     point — observed in practice when the figure-pair loss differentiates
-    d(x, x) through mobius_add(−x, x) ≈ 0 (TPU f32, reference-scale run).
+    d(x, x) through mobius_add(−x, x) ≈ 0 (f32, reference-scale run).
     The value perturbation is ≤ MIN_NORM = 1e-15, far below f32 resolution
     for any non-degenerate input."""
     return jnp.sqrt(_sq_norm(x, keepdims) + MIN_NORM * MIN_NORM)
@@ -158,7 +157,7 @@ def dist0(x: jax.Array, c: float | jax.Array = 1.0, *, keepdims: bool = False) -
 
 
 def pairwise_dist(x: jax.Array, y: jax.Array, c: float | jax.Array = 1.0) -> jax.Array:
-    """All-pairs geodesic distance matrix, MXU-friendly.
+    """All-pairs geodesic distance matrix (one Gram matmul).
 
     Args:
         x: [n, d] points on the ball.
@@ -177,9 +176,10 @@ def pairwise_dist(x: jax.Array, y: jax.Array, c: float | jax.Array = 1.0) -> jax
     c = jnp.asarray(c, dtype)
     x2 = _sq_norm(x)                      # [n, 1]
     y2 = _sq_norm(y)                      # [m, 1]
-    # HIGHEST precision: the TPU MXU's default bf16 passes destroy the
-    # x²−2xy+y² cancellation near the boundary (1−c‖x‖² is tiny there).
-    xy = jnp.dot(x, y.T, precision=jax.lax.Precision.HIGHEST)  # [n, m] (MXU)
+    # HIGHEST precision: a reduced-precision product (bf16 passes, or TF32
+    # on a GPU) destroys the x²−2xy+y² cancellation near the boundary
+    # (1−c‖x‖² is tiny there).
+    xy = jnp.dot(x, y.T, precision=jax.lax.Precision.HIGHEST)  # [n, m]
     sq_diff = jnp.maximum(x2 - 2.0 * xy + y2.T, 0.0)
     alpha = jnp.maximum(1.0 - c * x2, MIN_NORM)     # [n, 1]
     beta = jnp.maximum(1.0 - c * y2, MIN_NORM)      # [m, 1]
@@ -198,7 +198,7 @@ def mobius_matvec(m: jax.Array, x: jax.Array, c: float | jax.Array = 1.0) -> jax
     c = jnp.asarray(c, dtype)
     sqrt_c = jnp.sqrt(jnp.maximum(c, MIN_NORM))
     x_norm = _norm(x)
-    mx = jnp.dot(x, m.T, precision=jax.lax.Precision.HIGHEST)  # MXU
+    mx = jnp.dot(x, m.T, precision=jax.lax.Precision.HIGHEST)
     mx_norm = _norm(mx)
     res_c = jnp.tanh(mx_norm / x_norm * artanh(sqrt_c * x_norm)) * mx / (mx_norm * sqrt_c)
     # zero rows of mx map to the origin (geoopt cond handling)

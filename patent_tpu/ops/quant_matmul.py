@@ -1,96 +1,28 @@
-"""Fused dynamic-quantization int8 matmul kernels (Pallas, TPU).
+"""Dynamic-quantization int8 matmuls in plain XLA.
 
-The v5e MXU executes int8×int8→int32 at twice its bf16 rate (measured on
-this chip: 347 vs 173 TF/s sustained at ViT-B/16 shapes).  At the XLA level
-that win is unreachable for dynamically quantized activations: the
-per-token abs-max + round + cast pass and the int32→f32 dequant epilogue
-each materialize full activation tensors to HBM, and the measured end-to-end
-rate (~150-190 TF/s) is no better than bf16.  These kernels fuse the whole
-sequence —
-
-    per-row abs-max → int8 quantize → int8 MXU matmul → ×(row_scale ·
-    col_scale) dequant → +bias → [activation] → bf16 store
-
-— into ONE Pallas program per M-tile, with the int8 weight resident in VMEM
-across the grid (constant index_map), so HBM sees only: x read, w read
-(once), out write.
+Weights are quantized symmetrically per output channel once
+(``quantize_weight``); activations are quantized per row (token) on the
+fly (``_quant_rows``).  The product is an int8 × int8 → int32
+``dot_general`` followed by the float32 dequant (row scale · column scale)
+and bias.  On a GPU, XLA hands the integer product to cuBLASLt and fuses
+the abs-max, round and cast into the producer of the activations.
 
 Two entry points:
 
-* ``quant_dense``  — one dense layer, optional fused quick-gelu.
-* ``quant_mlp``    — a whole transformer MLP (dense→quick_gelu→dense); the
-  [M, mlp_dim] hidden tensor lives ONLY in VMEM.  For ViT-B/16 at batch 128
-  the XLA path writes+reads 155 MB of hidden activations per layer to HBM;
-  here that traffic is zero.
-
-Weights are pre-quantized symmetrically per output channel
-(``quantize_weight``); activations are quantized per row (token) on the fly
-inside the kernel — the same semantics as ``models/vit_int8.int8_dense``,
-kept numerically identical so the XLA path doubles as the CPU fallback and
-the correctness oracle (tests/test_quant_matmul.py).
+* ``quant_dense`` — one dense layer, optional quick-gelu.
+* ``quant_mlp``   — a transformer MLP (dense → quick_gelu → dense), float32
+  between the two products.
 
 Replaces the serving-side hot loop of the reference's CLIP encode
 (`/root/reference/notebooks/retrieval.ipynb` cell 2,
-``model.get_image_features`` over the gallery) — the reference runs it in
-full precision on CUDA; this is the TPU-native quantized twin.
+``model.get_image_features`` over the gallery), which the reference runs in
+full precision.
 """
 
 from __future__ import annotations
 
-import functools
-import os
-
 import jax
 import jax.numpy as jnp
-import numpy as np
-
-from .common import NEG_1702_LOG2E as _NEG_1702_LOG2E
-from .common import layernorm_f32 as _layernorm_f32
-from .common import on_tpu as _on_tpu
-from .common import round_up as _round_up
-from .flash_attention import SCORE_CLAMP_HI, SCORE_CLAMP_LO
-
-# Process-wide default for the kernels' ``fast`` flag (approx VPU reciprocal
-# in the dynamic-quant chain / gelu / softmax normalize).  Set
-# PATENT_TPU_FAST_KERNELS=0 to force the exact-division kernel variants
-# everywhere — the numerics-debugging escape hatch and the A/B lever for
-# benchmarking the fast path's contribution.  Measured on the full ViT-B/16
-# int8 tower (same process, v5e, batch 128 × 8-scan): fast=0 5,600 img/s →
-# fast=1 6,125 img/s (+9.4%, 15.3 µs/img — three exact divides per layer
-# become approximate-reciprocal multiplies); min drawing-input feature
-# cosine vs the bf16 tower stays 0.9998.
-def _fast(flag: bool | None) -> bool:
-    # read the env var at CALL time (trace time — negligible cost), not at
-    # import: the escape hatch must work when set after patent_tpu was
-    # first imported mid-debugging-session
-    if flag is None:
-        return os.environ.get("PATENT_TPU_FAST_KERNELS", "1") != "0"
-    return flag
-
-try:
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    _HAS_PALLAS = True
-except Exception:  # pragma: no cover
-    _HAS_PALLAS = False
-
-
-def required_seq_pad(seq: int, group: int) -> int:
-    """Token-axis padding contract of the int8 attention kernel.
-
-    int8 sublane tiles are 32 rows per image; the grouped path flattens
-    ``group`` images into one [group·S, …] projection, so S itself only
-    needs %16 with group·S %32 (197 tokens pad to 208, not 224).  The ONE
-    source of truth — the model (models/vit_int8.py) pads with this and the
-    kernel wrapper validates with it, so the two can never desynchronize.
-    """
-    use_group = group > 1
-    quantum = 16 if use_group and (group * 16) % 32 == 0 else 32
-    sp = _round_up(max(seq, quantum), quantum)
-    if use_group and (group * sp) % 32 != 0:
-        sp = _round_up(sp, 32)
-    return sp
 
 
 def quantize_weight(w: jax.Array) -> tuple[jax.Array, jax.Array]:
@@ -102,1288 +34,52 @@ def quantize_weight(w: jax.Array) -> tuple[jax.Array, jax.Array]:
 
 
 def _quant_rows(xf: jax.Array) -> tuple[jax.Array, jax.Array]:
-    """f32 [M, K] → (int8 [M, K], f32 [M, 1] scale); per-row symmetric."""
+    """f32 [..., K] → (int8 [..., K], f32 [..., 1] scale); per-row symmetric."""
     amax = jnp.maximum(jnp.max(jnp.abs(xf), axis=-1, keepdims=True), 1e-8)
     scale = amax * (1.0 / 127.0)
     q = jnp.round(xf / scale).astype(jnp.int8)
     return q, scale
 
 
-def _recip(x: jax.Array) -> jax.Array:
-    """Kernel-side fast reciprocal: the VPU-native approximate reciprocal
-    (~2^-12 relative error) instead of the multi-op Newton chain an f32
-    divide lowers to.  Every consumer here feeds an int8 quantization
-    (0.5-LSB rounding) or a bf16 cast (2^-8), so the approximation is
-    invisible; only kernel bodies call this — the XLA fallback paths keep
-    exact division and remain the correctness oracle."""
-    return pl.reciprocal(x, approx=True)
-
-
-def _quant_rows_k(xf: jax.Array) -> tuple[jax.Array, jax.Array]:
-    """Kernel-side ``_quant_rows``: one multiply pass over [M, K] instead of
-    a full-tensor divide (measured win: the divide is a whole extra VPU pass
-    at [M, 3072]).  The returned dequant scale is the exact ``amax/127``;
-    its ≤2^-12 relative mismatch with the approximate ``127·recip(amax)``
-    used for quantization is far below the 0.5-LSB rounding noise."""
-    amax = jnp.maximum(jnp.max(jnp.abs(xf), axis=-1, keepdims=True), 1e-8)
-    inv = _recip(amax) * 127.0
-    q = jnp.round(xf * inv).astype(jnp.int8)
-    return q, amax * (1.0 / 127.0)
-
-
-
-# NEGATIVE RESULT (do not retry): a ~9-op deg-2-poly + exponent-bitcast
-# exp2 for the softmax weights measured SLOWER than Mosaic's native exp2
-# lowering (66.9 vs 65.9 μs/img on the grouped attention stack), and the
-# probe="no_exp2" decomposition shows the exp2 pass costs ≈ 0 — Mosaic
-# already overlaps it with the score/pv MXU dots (tools/ab_attn_cost.py,
-# two same-process sessions).
+def _int8_matmul(x: jax.Array, w_i8: jax.Array, w_scale: jax.Array,
+                 bias: jax.Array | None) -> jax.Array:
+    """float32 ``(quant(x) @ w_i8) · scales + bias`` for x [..., K]."""
+    xq, scale = _quant_rows(x.astype(jnp.float32))
+    acc = jax.lax.dot_general(
+        xq, w_i8, dimension_numbers=(((x.ndim - 1,), (0,)), ((), ())),
+        preferred_element_type=jnp.int32)
+    out = acc.astype(jnp.float32) * scale * w_scale
+    return out if bias is None else out + bias
 
 
 def _quick_gelu(g: jax.Array) -> jax.Array:
-    """``g · sigmoid(1.702 g)`` written as ``g / (1 + exp2(−1.702·log2e·g))``.
-
-    Mathematically identical; the explicit exp2 form (the VPU-native
-    exponential) measures 0.3 μs/img/layer faster than Mosaic's
-    ``jax.nn.sigmoid`` lowering inside the MLP kernel on v5e (7.70 → 7.41,
-    same-process A/B ×2); output differs from the sigmoid form by ≤1 int8
-    LSB after requantization."""
-    return g / (1.0 + jnp.exp2(_NEG_1702_LOG2E * g))
-
-
-def _quick_gelu_k(g: jax.Array) -> jax.Array:
-    """Kernel-side ``_quick_gelu``: the divide becomes a fast-reciprocal
-    multiply (output is int8-requantized right after, so the 2^-12 error is
-    below quantization noise)."""
-    return g * _recip(1.0 + jnp.exp2(_NEG_1702_LOG2E * g))
-
-
-def _apply_act(out: jax.Array, act: str | None,
-               fast: bool = False) -> jax.Array:
-    if act == "quick_gelu":
-        return _quick_gelu_k(out) if fast else _quick_gelu(out)
-    if act is not None:
-        raise ValueError(f"unknown activation {act!r}")
-    return out
-
-
-# --------------------------------------------------------------------- dense
-
-def _qdense_kernel(x_ref, w_ref, ws_ref, b_ref, o_ref, *, act, fast):
-    xf = x_ref[...].astype(jnp.float32)
-    xq, scale = (_quant_rows_k if fast else _quant_rows)(xf)
-    acc = jax.lax.dot(xq, w_ref[...], preferred_element_type=jnp.int32)
-    out = acc.astype(jnp.float32) * scale * ws_ref[...] + b_ref[...]
-    o_ref[...] = _apply_act(out, act, fast=fast).astype(o_ref.dtype)
-
-
-@functools.partial(jax.jit, static_argnames=("m_tile", "act", "out_dtype",
-                                             "fast"))
-def _qdense_2d(x, w_i8, w_scale, bias, m_tile, act, out_dtype, fast=True):
-    m, k = x.shape
-    n = w_i8.shape[1]
-    return pl.pallas_call(
-        functools.partial(_qdense_kernel, act=act, fast=fast),
-        grid=(m // m_tile,),
-        in_specs=[
-            pl.BlockSpec((m_tile, k), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((k, n), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, n), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, n), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((m_tile, n), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((m, n), out_dtype),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * m * k * n,
-            bytes_accessed=m * k * 2 + k * n + m * n * 2,
-            transcendentals=m * n if act else 0),
-    )(x, w_i8, w_scale.reshape(1, -1), bias.reshape(1, -1))
+    return g * jax.nn.sigmoid(1.702 * g)
 
 
 def quant_dense(x: jax.Array, w_i8: jax.Array, w_scale: jax.Array,
-                bias: jax.Array | None = None, act: str | None = None,
-                m_tile: int = 256, force: bool = False,
-                fast: bool | None = None) -> jax.Array:
-    """``act_fn((quant(x) @ w_i8) · scales + bias)`` with on-the-fly per-row
-    activation quantization fused into an int8 MXU matmul.
+                bias: jax.Array | None = None,
+                act: str | None = None) -> jax.Array:
+    """``act((quant(x) @ w_i8) · scales + bias)`` with per-row activation
+    quantization.
 
     x: [..., K] (bf16/f32); w_i8: [K, N] int8; w_scale: [N]; bias: [N]|None.
-    Returns [..., N] in x.dtype.  Off-TPU falls back to the numerically
-    identical XLA path.
+    Returns [..., N] in x.dtype.
     """
-    *lead, k = x.shape
-    n = w_i8.shape[1]
-    if bias is None:
-        bias = jnp.zeros((n,), jnp.float32)
-    if not (_HAS_PALLAS and (_on_tpu() or force)):
-        xf = x.astype(jnp.float32)
-        xq, scale = _quant_rows(xf)
-        acc = jax.lax.dot_general(
-            xq, w_i8, dimension_numbers=(((x.ndim - 1,), (0,)), ((), ())),
-            preferred_element_type=jnp.int32)
-        out = acc.astype(jnp.float32) * scale * w_scale + bias
-        return _apply_act(out, act).astype(x.dtype)
-
-    m = int(np.prod(lead)) if lead else 1
-    x2 = x.reshape(m, k)
-    mp = _round_up(max(m, m_tile), m_tile)
-    if mp != m:
-        x2 = jnp.pad(x2, ((0, mp - m), (0, 0)))
-    out = _qdense_2d(x2, w_i8, w_scale.astype(jnp.float32),
-                     bias.astype(jnp.float32), m_tile, act,
-                     jnp.dtype(x.dtype).name, _fast(fast))
-    return out[:m].reshape(*lead, n)
-
-
-# ----------------------------------------------------------------------- mlp
-
-def _qmlp_kernel(x_ref, w1_ref, s1_ref, b1_ref, w2_ref, s2_ref, b2_ref,
-                 o_ref, *, fast):
-    quant = _quant_rows_k if fast else _quant_rows
-    xf = x_ref[...].astype(jnp.float32)
-    xq, xs = quant(xf)
-    acc1 = jax.lax.dot(xq, w1_ref[...], preferred_element_type=jnp.int32)
-    h = acc1.astype(jnp.float32) * xs * s1_ref[...] + b1_ref[...]
-    h = _quick_gelu_k(h) if fast else _quick_gelu(h)
-    hq, hs = quant(h)
-    acc2 = jax.lax.dot(hq, w2_ref[...], preferred_element_type=jnp.int32)
-    out = acc2.astype(jnp.float32) * hs * s2_ref[...] + b2_ref[...]
-    o_ref[...] = out.astype(o_ref.dtype)
-
-
-@functools.partial(jax.jit, static_argnames=("m_tile", "out_dtype", "fast"))
-def _qmlp_2d(x, w1, s1, b1, w2, s2, b2, m_tile, out_dtype, fast=True):
-    m, k = x.shape
-    h = w1.shape[1]
-    n = w2.shape[1]
-
-    def const(shape):
-        return pl.BlockSpec(shape, lambda i: (0,) * len(shape),
-                            memory_space=pltpu.VMEM)
-
-    return pl.pallas_call(
-        functools.partial(_qmlp_kernel, fast=fast),
-        grid=(m // m_tile,),
-        in_specs=[
-            pl.BlockSpec((m_tile, k), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            const((k, h)), const((1, h)), const((1, h)),
-            const((h, n)), const((1, n)), const((1, n)),
-        ],
-        out_specs=pl.BlockSpec((m_tile, n), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((m, n), out_dtype),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * m * k * h + 2 * m * h * n,
-            bytes_accessed=m * k * 2 + k * h + h * n + m * n * 2,
-            transcendentals=m * h),
-    )(x, w1, s1.reshape(1, -1), b1.reshape(1, -1),
-      w2, s2.reshape(1, -1), b2.reshape(1, -1))
+    out = _int8_matmul(x, w_i8, w_scale, bias)
+    if act == "quick_gelu":
+        out = _quick_gelu(out)
+    elif act is not None:
+        raise ValueError(f"unknown activation {act!r}")
+    return out.astype(x.dtype)
 
 
 def quant_mlp(x: jax.Array, w1_i8: jax.Array, s1: jax.Array, b1: jax.Array,
-              w2_i8: jax.Array, s2: jax.Array, b2: jax.Array,
-              m_tile: int = 256, force: bool = False,
-              fast: bool | None = None) -> jax.Array:
-    """Whole transformer MLP ``dense→quick_gelu→dense`` as one kernel; the
-    [M, mlp_dim] hidden tensor never leaves VMEM.
+              w2_i8: jax.Array, s2: jax.Array, b2: jax.Array) -> jax.Array:
+    """Transformer MLP ``dense → quick_gelu → dense`` with both products in
+    int8; the hidden stays float32 between them.
 
     x: [..., K]; w1_i8: [K, H] int8; w2_i8: [H, K'] int8; scales/biases per
     output channel.  Returns [..., K'] in x.dtype.
     """
-    *lead, k = x.shape
-    n = w2_i8.shape[1]
-    if not (_HAS_PALLAS and (_on_tpu() or force)):
-        # f32-throughout fallback, mirroring the kernel exactly (h never
-        # drops to x.dtype between the two matmuls)
-        xf = x.astype(jnp.float32)
-        xq, xs = _quant_rows(xf)
-        acc1 = jax.lax.dot_general(
-            xq, w1_i8, dimension_numbers=(((x.ndim - 1,), (0,)), ((), ())),
-            preferred_element_type=jnp.int32)
-        h = acc1.astype(jnp.float32) * xs * s1 + b1
-        h = _quick_gelu(h)
-        hq, hs = _quant_rows(h)
-        acc2 = jax.lax.dot_general(
-            hq, w2_i8, dimension_numbers=(((x.ndim - 1,), (0,)), ((), ())),
-            preferred_element_type=jnp.int32)
-        out = acc2.astype(jnp.float32) * hs * s2 + b2
-        return out.astype(x.dtype)
-
-    m = int(np.prod(lead)) if lead else 1
-    x2 = x.reshape(m, k)
-    mp = _round_up(max(m, m_tile), m_tile)
-    if mp != m:
-        x2 = jnp.pad(x2, ((0, mp - m), (0, 0)))
-    out = _qmlp_2d(x2, w1_i8, s1.astype(jnp.float32), b1.astype(jnp.float32),
-                   w2_i8, s2.astype(jnp.float32), b2.astype(jnp.float32),
-                   m_tile, jnp.dtype(x.dtype).name, _fast(fast))
-    return out[:m].reshape(*lead, n)
-
-
-# ------------------------------------------------- fused transformer blocks
-#
-# One transformer layer = TWO kernels.  Each fuses LayerNorm + the quantized
-# matmuls + the residual add, so per layer the residual stream is the ONLY
-# activation tensor that touches HBM (x read + x' write per kernel).  The
-# XLA path additionally materializes the LN output, the [S, 3D] QKV tensor,
-# head-major transposes, [H, S, S] softmax, the attention output, and the
-# [S, mlp_dim] hidden — an order of magnitude more traffic.
-
-def _qattn_block_kernel(x_ref, lns_ref, lnb_ref, wqkv_ref, sqkv_ref,
-                        bqkv_ref, wout_ref, sout_ref, bout_ref, o_ref, *,
-                        seq_len: int, num_heads: int, head_dim: int,
-                        fast: bool):
-    """One batch element: x + out_proj(MHA(qkv_proj(LN(x)))), projections on
-    the int8 MXU, softmax in f32, everything in VMEM."""
-    x = x_ref[0].astype(jnp.float32)                       # [Sp, D]
-    out = _attn_sublayer_f32(x, lns_ref[...], lnb_ref[...], wqkv_ref,
-                             sqkv_ref[...], bqkv_ref[...], wout_ref,
-                             sout_ref[...], bout_ref[...], seq_len,
-                             num_heads, head_dim, fast=fast)
-    o_ref[0] = (x + out).astype(o_ref.dtype)
-
-
-def _attn_sublayer_f32(x, lns, lnb, wqkv_ref, sqkv, bqkv, wout_ref, sout,
-                       bout, seq_len: int, num_heads: int, head_dim: int,
-                       fast: bool = True):
-    """Shared in-VMEM attention sub-layer body (pre-residual output).
-
-    Softmax is reduced to ONE elementwise pass over each [S, S] score tile
-    (VPU work is what dominates this kernel — ablation: full 7.7 vs
-    no-softmax 3.0 μs/img/layer on v5e):
-
-    * the 1/sqrt(head_dim) score scale and the log2(e) factor that turns
-      exp into the VPU-native ``exp2`` are folded into the q-columns of the
-      int8 DEQUANT scale/bias vectors — zero per-score cost;
-    * no running/max subtraction: scores are clamped at +80 and fed to
-      exp2 directly.  Safe because exp2(80)≈1.2e24, so the f32 denominator
-      (≤ S·2^80 ≈ 2^88) and the p·v accumulator stay far below f32 max;
-      scores this large never occur for real LN'd inputs anyway — the
-      clamp only guards junk pad-row queries;
-    * the key-pad MASK and the DENOMINATOR both ride the p·v MXU matmul
-      instead of costing VPU passes: pad rows of V are zeroed and a 0/1
-      valid-key column is appended to V, so ``o_ext = p @ [V·m | m]``
-      yields the masked numerator and exact masked denominator in one dot
-      ([S, head_dim+1] divide afterwards, S× cheaper than a [S, S] pass).
-      Keep the CONCAT form: splitting into ``o = p @ (V·m)`` + a separate
-      ``den = p @ m`` dot wins in an isolated attention-sublayer stack
-      (74.1 → 66.2 μs/img) but LOSES inside this whole-layer kernel
-      (166.3 → 178.5 μs/img, same-process interleaved ×3 A/B,
-      tools/ab_attn_form.py) — the tiny N=1 dot starves Mosaic's
-      scheduler where the MLP matmuls compete for the MXU.
-
-    The remaining VPU work per head is just exp2(min(s, 80)) + the bf16
-    cast, which Mosaic fuses into one pass.  The bf16 rounding of p affects
-    numerator and denominator identically, so softmax weights keep ~3
-    decimal digits — same as the explicit-sum variant it replaced.
-    """
-    quant = _quant_rows_k if fast else _quant_rows
-    h = _layernorm_f32(x, lns, lnb)
-    hq, hs = quant(h)
-    d = num_heads * head_dim
-    sp = x.shape[0]
-    scale = float(np.log2(np.e) / np.sqrt(head_dim))
-    colid = jax.lax.broadcasted_iota(jnp.int32, (1, 3 * d), 1)
-    qcol = colid < d                                  # fold scale into q
-    sqkv = jnp.where(qcol, sqkv * scale, sqkv)
-    bqkv = jnp.where(qcol, bqkv * scale, bqkv)
-    qkv = (jax.lax.dot(hq, wqkv_ref[...],
-                       preferred_element_type=jnp.int32).astype(jnp.float32)
-           * hs * sqkv + bqkv)                             # [Sp, 3D] f32
-    qkv16 = qkv.astype(jnp.bfloat16)
-    rowi = jax.lax.broadcasted_iota(jnp.int32, (sp, 1), 0)
-    valid = (rowi < seq_len).astype(jnp.bfloat16)          # [Sp, 1]
-    heads = []
-    for i in range(num_heads):
-        lo = i * head_dim
-        q = qkv16[:, lo:lo + head_dim]
-        k = qkv16[:, d + lo:d + lo + head_dim]
-        v = qkv16[:, 2 * d + lo:2 * d + lo + head_dim]
-        v_ext = jnp.concatenate([v * valid, valid], axis=1)
-        s = jax.lax.dot_general(
-            q, k, dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32)
-        # lower clamp: guards the 0/0 NaN when an (junk pad-query) row's
-        # scores all sit below exp2's underflow — see
-        # flash_attention._one_pass_softmax_pv
-        p = jnp.exp2(jnp.clip(s, SCORE_CLAMP_LO, SCORE_CLAMP_HI)).astype(jnp.bfloat16)
-        o_ext = jax.lax.dot(p, v_ext, preferred_element_type=jnp.float32)
-        den = o_ext[:, head_dim:head_dim + 1]
-        heads.append(o_ext[:, :head_dim] * _recip(den) if fast
-                     else o_ext[:, :head_dim] / den)
-    ao = jnp.concatenate(heads, axis=1)                    # [Sp, D] f32
-    aq, ascale = quant(ao)
-    return (jax.lax.dot(aq, wout_ref[...],
-                        preferred_element_type=jnp.int32).astype(jnp.float32)
-            * ascale * sout + bout)
-
-
-@functools.partial(jax.jit, static_argnames=("seq_len", "num_heads",
-                                             "head_dim", "out_dtype",
-                                             "fast"))
-def _qattn_block_impl(x, lns, lnb, wqkv, sqkv, bqkv, wout, sout, bout,
-                      seq_len, num_heads, head_dim, out_dtype, fast=True):
-    b, sp, d = x.shape
-    xspec = pl.BlockSpec((1, sp, d), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM)
-
-    def const(shape):
-        return pl.BlockSpec(shape, lambda i: (0,) * len(shape),
-                            memory_space=pltpu.VMEM)
-
-    flops = b * (2 * sp * d * 3 * d + 4 * sp * sp * d + 2 * sp * d * d)
-    return pl.pallas_call(
-        functools.partial(_qattn_block_kernel, seq_len=seq_len,
-                          num_heads=num_heads, head_dim=head_dim, fast=fast),
-        grid=(b,),
-        in_specs=[xspec, const(lns.shape), const(lnb.shape),
-                  const(wqkv.shape), const(sqkv.shape), const(bqkv.shape),
-                  const(wout.shape), const(sout.shape), const(bout.shape)],
-        out_specs=xspec,
-        out_shape=jax.ShapeDtypeStruct((b, sp, d), out_dtype),
-        cost_estimate=pl.CostEstimate(
-            flops=flops, bytes_accessed=2 * 2 * b * sp * d + 4 * d * d,
-            transcendentals=b * num_heads * sp * sp),
-    )(x, lns, lnb, wqkv, sqkv, bqkv, wout, sout, bout)
-
-
-def _packed_pair_attention(q16, k16, v16, valid, r0, sp, head_dim, lo,
-                           fast: bool):
-    """TWO adjacent heads' score+pv dots as ONE block-diagonal MXU dot each.
-
-    The per-head score dot contracts over K=64 — half the MXU's 128-deep
-    systolic array, the single most shape-inefficient work in the kernel
-    (measured 14.3 µs/img of the 12-layer stack).  Packing heads i, i+1:
-
-    * q_pair = q16[:, lo:lo+128] — adjacent heads are ADJACENT LANES of the
-      qkv projection, so the 128-lane operand is a free contiguous slice;
-    * k_pack = [[k_i, 0], [0, k_j]]  ([2·Sp, 128] block-diagonal): the dot
-      ``q_pair @ k_pack^T`` → [Sp, 2·Sp] = [s_i | s_j] — both heads' exact
-      scores in one FULL-DEPTH K=128 pass;
-    * exp2 runs once over the packed [Sp, 2·Sp] tile;
-    * v_pack = [[v_ext_i, 0], [0, v_ext_j]] ([2·Sp, 2·(hd+1)]): the pv dot
-      ``p_pack @ v_pack`` → [Sp, 130] = [o_ext_i | o_ext_j], halving the
-      N=65→128 lane-padding waste of the per-head pv dots.
-
-    NEGATIVE RESULT — ships OFF (head_pack=1).  Measured on v5e
-    (tools/ab_head_pack.py, same-process ×3): attention stack 75.7 vs
-    66.6 µs/img per-head — the block-diagonal operand builds and the
-    [Sp, 2Sp] dot layouts cost more than the doubled contraction depth
-    recovers.  Numerics: the packing only adds exact-zero products, but
-    the MXU reassociates the accumulation at K=128, so hardware output is
-    close (pinned in tests/test_quant_matmul.py) yet not bit-identical.
-    Returns the two heads' normalized outputs ([Sp, hd] each).
-    """
-    q_pair = q16[r0:r0 + sp, lo:lo + 2 * head_dim]          # [Sp, 128]
-    k_i = k16[r0:r0 + sp, lo:lo + head_dim]
-    k_j = k16[r0:r0 + sp, lo + head_dim:lo + 2 * head_dim]
-    zs = jnp.zeros((sp, head_dim), jnp.bfloat16)
-    k_pack = jnp.concatenate(
-        [jnp.concatenate([k_i, zs], axis=1),
-         jnp.concatenate([zs, k_j], axis=1)], axis=0)       # [2Sp, 128]
-    s_pack = jax.lax.dot_general(
-        q_pair, k_pack, dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32)                 # [Sp, 2Sp]
-    p_pack = jnp.exp2(jnp.clip(s_pack, SCORE_CLAMP_LO,
-                               SCORE_CLAMP_HI)).astype(jnp.bfloat16)
-    v_i = v16[r0:r0 + sp, lo:lo + head_dim]
-    v_j = v16[r0:r0 + sp, lo + head_dim:lo + 2 * head_dim]
-    ze = jnp.zeros((sp, head_dim + 1), jnp.bfloat16)
-    v_pack = jnp.concatenate(
-        [jnp.concatenate([v_i * valid, valid, ze], axis=1),
-         jnp.concatenate([ze, v_j * valid, valid], axis=1)],
-        axis=0)                                             # [2Sp, 2(hd+1)]
-    o_pack = jax.lax.dot(p_pack, v_pack,
-                         preferred_element_type=jnp.float32)
-    den_i = o_pack[:, head_dim:head_dim + 1]
-    den_j = o_pack[:, 2 * head_dim + 1:2 * head_dim + 2]
-    o_i = o_pack[:, :head_dim]
-    o_j = o_pack[:, head_dim + 1:2 * head_dim + 1]
-    if fast:
-        return o_i * _recip(den_i), o_j * _recip(den_j)
-    return o_i / den_i, o_j / den_j
-
-
-def _qattn_group_kernel(x_ref, lns_ref, lnb_ref, wq_ref, wk_ref, wv_ref,
-                        sqkv_ref, bqkv_ref, wout_ref, sout_ref, bout_ref,
-                        o_ref, *, seq_len: int, num_heads: int,
-                        head_dim: int, group: int, fast: bool,
-                        score_i8: bool = False, head_pack: int = 1,
-                        probe: str | None = None):
-    """``group`` images per grid step: every int8 projection runs at
-    M = group·Sp rows.  The MXU rounds M up to the next 128-row tile, so
-    the per-image M=224 (ViT-B/16 @224, padded) wastes 32/256 of the
-    matmul — measured 270 vs 301 TOP/s for m_tile 224 vs 256 on v5e.  At
-    group=4, M=896=7·128 exactly; same-process 12-layer-stack A/B:
-    142.4 vs 148 μs/img against the per-image whole-layer kernel
-    (grouped attention composed with the flattened-M quant_mlp_block),
-    bit-identical output.
-
-    qkv is computed as THREE [D, D] projections (q/k/v weight slices are
-    split host-side): one [G·Sp, 3D] f32 accumulator plus its bf16 copy
-    exceeds even the raised VMEM budget, while per-projection accumulators
-    peak at [G·Sp, D] and free between projections.  exp2-domain softmax,
-    pad-key masking and the denominator-in-the-matmul trick are identical
-    to ``_attn_sublayer_f32``."""
-    quant = _quant_rows_k if fast else _quant_rows
-    g, sp, d = x_ref.shape
-    xa = x_ref[...].astype(jnp.float32).reshape(g * sp, d)
-    h = _layernorm_f32(xa, lns_ref[...], lnb_ref[...])
-    hq, hs = quant(h)
-    scale = float(np.log2(np.e) / np.sqrt(head_dim))
-
-    def proj(w_ref, sl, fold):
-        acc = jax.lax.dot(hq, w_ref[...], preferred_element_type=jnp.int32)
-        if probe == "raw_qkv":
-            # timing ONLY: skip the dequant (scale mult + bias) passes
-            return (acc >> 7).astype(jnp.bfloat16)
-        f = scale if fold else 1.0
-        return (acc.astype(jnp.float32) * hs * (sqkv_ref[:, sl] * f)
-                + bqkv_ref[:, sl] * f).astype(jnp.bfloat16)
-
-    q16 = proj(wq_ref, slice(0, d), True)
-    k16 = proj(wk_ref, slice(d, 2 * d), False)
-    v16 = proj(wv_ref, slice(2 * d, 3 * d), False)
-    rowi = jax.lax.broadcasted_iota(jnp.int32, (sp, 1), 0)
-    valid = (rowi < seq_len).astype(jnp.bfloat16)
-    if score_i8:
-        # int8 score dots, quantized in TWO whole-stream VPU passes (a
-        # per-head quant chain measured 12 µs/img SLOWER — the small
-        # serial VPU chains don't hide in the latency-bound head loop).
-        # q keeps per-ROW scales (broadcast over score columns); k takes
-        # ONE global scale (a per-row k scale would need a [Sp,1]→[1,Sp]
-        # transpose — a slow Mosaic relayout).  Rows mix heads in the q
-        # scale; pre-softmax scores tolerate the ~2^-7 relative noise
-        # (feature cosine measured in bench.py / tests).
-        qf = q16.astype(jnp.float32)
-        qamax = jnp.maximum(jnp.max(jnp.abs(qf), axis=-1, keepdims=True),
-                            1e-8)
-        qq_all = jnp.round(qf * (_recip(qamax) * 127.0)).astype(jnp.int8)
-        qs_all = qamax * (1.0 / 127.0)                     # [G·Sp, 1]
-        kf = k16.astype(jnp.float32)
-        kamax = jnp.maximum(jnp.max(jnp.abs(kf), axis=(0, 1),
-                                    keepdims=True), 1e-8)
-        kq_all = jnp.round(kf * (_recip(kamax) * 127.0)).astype(jnp.int8)
-        ksc = kamax * (1.0 / 127.0)                        # [1, 1]
-    if probe == "headless":
-        # timing decomposition ONLY: skip the whole per-head block —
-        # isolates the projection+quant share of the kernel.
-        ao = v16.astype(jnp.float32)
-    elif probe == "head_major":
-        # HEAD-MAJOR restructure of the per-head block: one lane slice
-        # per head over the whole [G·Sp, D] group stream (4× fewer lane
-        # slices — half of today's 64-lane-offset slices need a lane
-        # rotate), images stacked on SUBLANES so exp2/cast/recip run as
-        # 12 big [G·Sp, ·] VPU passes instead of 48 small [Sp, ·] ones.
-        # The 96 score/pv MXU dots are unchanged (per-image sublane
-        # slices of the stacked operands are tile-aligned and free).
-        rowg = jax.lax.broadcasted_iota(jnp.int32, (g * sp, 1), 0)
-        valid_g = ((rowg % sp) < seq_len).astype(jnp.bfloat16)
-        head_cols = []
-        for i in range(num_heads):
-            lo = i * head_dim
-            qh = q16[:, lo:lo + head_dim]
-            kh = k16[:, lo:lo + head_dim]
-            vh_ext = jnp.concatenate(
-                [v16[:, lo:lo + head_dim] * valid_g, valid_g], axis=1)
-            s_all = jnp.concatenate(
-                [jax.lax.dot_general(
-                    qh[gi * sp:(gi + 1) * sp], kh[gi * sp:(gi + 1) * sp],
-                    dimension_numbers=(((1,), (1,)), ((), ())),
-                    preferred_element_type=jnp.float32)
-                 for gi in range(g)], axis=0)             # [G·Sp, Sp]
-            p_all = jnp.exp2(jnp.clip(s_all, SCORE_CLAMP_LO,
-                                      SCORE_CLAMP_HI)).astype(jnp.bfloat16)
-            o_all = jnp.concatenate(
-                [jax.lax.dot(p_all[gi * sp:(gi + 1) * sp],
-                             vh_ext[gi * sp:(gi + 1) * sp],
-                             preferred_element_type=jnp.float32)
-                 for gi in range(g)], axis=0)             # [G·Sp, hd+1]
-            den = o_all[:, head_dim:head_dim + 1]
-            head_cols.append(o_all[:, :head_dim] * _recip(den) if fast
-                             else o_all[:, :head_dim] / den)
-        ao = jnp.concatenate(head_cols, axis=1)           # [G·Sp, D]
-    elif head_pack == 2 and not score_i8 and probe is None:
-        aos = []
-        for gi in range(g):
-            r0 = gi * sp
-            heads = []
-            for i in range(0, num_heads, 2):
-                o_i, o_j = _packed_pair_attention(
-                    q16, k16, v16, valid, r0, sp, head_dim, i * head_dim,
-                    fast)
-                heads.append(o_i)
-                heads.append(o_j)
-            aos.append(jnp.concatenate(heads, axis=1))
-        ao = jnp.concatenate(aos, axis=0)                  # [G·Sp, D]
-    else:
-        aos = []
-        # probe="half_heads" (timing ONLY): run every other head chain and
-        # duplicate its output — the time drop is the marginal cost of 6
-        # whole per-head chains (dots + glue + serialization)
-        head_iter = (range(0, num_heads, 2) if probe == "half_heads"
-                     else range(num_heads))
-        for gi in range(g):
-            r0 = gi * sp
-            heads = []
-            for i in head_iter:
-                lo = i * head_dim
-                q = q16[r0:r0 + sp, lo:lo + head_dim]
-                k = k16[r0:r0 + sp, lo:lo + head_dim]
-                v = v16[r0:r0 + sp, lo:lo + head_dim]
-                if probe == "no_vext":
-                    # timing ONLY: raw v, no pad-key mask / den column
-                    v_ext = v
-                else:
-                    v_ext = jnp.concatenate([v * valid, valid], axis=1)
-                if probe == "no_score":
-                    # timing ONLY: replace the [Sp,64]x[64,Sp] score dot
-                    # with an iota ramp scaled by a q element (no
-                    # transpose/relayout — exposes the dot's true share)
-                    s = (jax.lax.broadcasted_iota(jnp.int32, (sp, sp), 1)
-                         .astype(jnp.float32)
-                         * (q[:, :1].astype(jnp.float32) * 1e-4))
-                elif score_i8:
-                    # int8 score dots: the v5e MXU runs int8 at 2× the
-                    # bf16 rate, and at K=64 (half-empty K tiles either
-                    # way) the bf16 score dots are the single most
-                    # shape-inefficient MXU work in the kernel (measured
-                    # 14.3 µs/img of the 12-layer stack); operands are
-                    # pre-quantized in whole-stream passes above
-                    s32 = jax.lax.dot_general(
-                        qq_all[r0:r0 + sp, lo:lo + head_dim],
-                        kq_all[r0:r0 + sp, lo:lo + head_dim],
-                        dimension_numbers=(((1,), (1,)), ((), ())),
-                        preferred_element_type=jnp.int32)
-                    s = s32.astype(jnp.float32) * (qs_all[r0:r0 + sp] * ksc)
-                else:
-                    s = jax.lax.dot_general(
-                        q, k, dimension_numbers=(((1,), (1,)), ((), ())),
-                        preferred_element_type=jnp.float32)
-                # probe="no_exp2" (timing decomposition ONLY — output is
-                # NOT a softmax): skip the exp2 pass to expose its share
-                # of the kernel time.  tools/ab_attn_cost.py is the only
-                # prober; measured share ≈ 0 (exp2 rides the MXU shadow).
-                sc = jnp.clip(s, SCORE_CLAMP_LO, SCORE_CLAMP_HI)
-                if probe == "no_exp2":
-                    p = sc.astype(jnp.bfloat16)
-                else:
-                    p = jnp.exp2(sc).astype(jnp.bfloat16)
-                if probe == "no_pv":
-                    # timing ONLY: replace the [Sp,Sp]x[Sp,65] pv dot
-                    o_ext = (p[:, :head_dim + 1].astype(jnp.float32)
-                             * v_ext[:1, :].astype(jnp.float32))
-                else:
-                    o_ext = jax.lax.dot(p, v_ext,
-                                        preferred_element_type=jnp.float32)
-                den = (o_ext[:, :1] if probe == "no_vext"
-                       else o_ext[:, head_dim:head_dim + 1])
-                heads.append(o_ext[:, :head_dim] * _recip(den) if fast
-                             else o_ext[:, :head_dim] / den)
-                if probe == "half_heads":
-                    heads.append(heads[-1])
-            if probe == "no_assembly":
-                # timing ONLY: sum the head outputs (no lane-offset
-                # placement) and pad — exposes the concat/assembly share
-                acc = heads[0]
-                for hh in heads[1:]:
-                    acc = acc + hh
-                aos.append(jnp.pad(acc, ((0, 0), (0, d - head_dim))))
-            else:
-                aos.append(jnp.concatenate(heads, axis=1))
-        ao = jnp.concatenate(aos, axis=0)                  # [G·Sp, D]
-    aq, ascale = quant(ao)
-    out = (jax.lax.dot(aq, wout_ref[...],
-                       preferred_element_type=jnp.int32).astype(jnp.float32)
-           * ascale * sout_ref[...] + bout_ref[...])
-    o_ref[...] = (x_ref[...].astype(jnp.float32)
-                  + out.reshape(g, sp, d)).astype(o_ref.dtype)
-
-
-@functools.partial(jax.jit, static_argnames=("seq_len", "num_heads",
-                                             "head_dim", "out_dtype",
-                                             "group", "fast", "score_i8",
-                                             "head_pack", "probe"))
-def _qattn_group_impl(x, lns, lnb, wqkv, sqkv, bqkv, wout, sout, bout,
-                      seq_len, num_heads, head_dim, out_dtype, group,
-                      fast=True, score_i8=False, head_pack=1, probe=None):
-    b, sp, d = x.shape
-    xspec = pl.BlockSpec((group, sp, d), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM)
-
-    def const(shape):
-        return pl.BlockSpec(shape, lambda i: (0,) * len(shape),
-                            memory_space=pltpu.VMEM)
-
-    flops = b * (2 * sp * d * 3 * d + 4 * sp * sp * d + 2 * sp * d * d)
-    return pl.pallas_call(
-        functools.partial(_qattn_group_kernel, seq_len=seq_len,
-                          num_heads=num_heads, head_dim=head_dim,
-                          group=group, fast=fast, score_i8=score_i8,
-                          head_pack=head_pack, probe=probe),
-        grid=(b // group,),
-        in_specs=[xspec, const(lns.shape), const(lnb.shape),
-                  const((d, d)), const((d, d)), const((d, d)),
-                  const(sqkv.shape), const(bqkv.shape),
-                  const(wout.shape), const(sout.shape), const(bout.shape)],
-        out_specs=xspec,
-        out_shape=jax.ShapeDtypeStruct((b, sp, d), out_dtype),
-        cost_estimate=pl.CostEstimate(
-            flops=flops, bytes_accessed=2 * 2 * b * sp * d + 4 * d * d,
-            transcendentals=b * num_heads * sp * sp),
-        # the group's working set (~18 MB at G=4/S=224/D=768) exceeds
-        # Mosaic's default 16 MB scoped-vmem budget; v5e executes fine with
-        # the raised cap (verified on hardware, outputs bit-identical)
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=64 * 1024 * 1024,
-            # grid steps own disjoint [G, Sp, D] slabs — declaring them
-            # parallel lets Mosaic overlap across steps; measured 66.35 vs
-            # 67.06 µs/img on the 12-layer attention stack (≈ the noise
-            # floor, never worse across sessions), bit-identical output
-            dimension_semantics=("parallel",)),
-    )(x, lns, lnb, wqkv[:, :d], wqkv[:, d:2 * d], wqkv[:, 2 * d:],
-      sqkv, bqkv, wout, sout, bout)
-
-
-def quant_attention_block(x: jax.Array, ln_scale: jax.Array,
-                          ln_bias: jax.Array, wqkv_i8: jax.Array,
-                          sqkv: jax.Array, bqkv: jax.Array,
-                          wout_i8: jax.Array, sout: jax.Array,
-                          bout: jax.Array, num_heads: int,
-                          valid_len: int | None = None,
-                          force: bool = False,
-                          fast: bool | None = None,
-                          group: int = 1,
-                          score_i8: bool = False,
-                          head_pack: int = 1,
-                          _probe: str | None = None) -> jax.Array:
-    """Fused ``x + out_proj(MHA(qkv_proj(LayerNorm(x))))`` — the whole
-    pre-LN attention sub-layer (residual included) as one Pallas kernel with
-    int8 projections.
-
-    x: [B, S, D]; wqkv_i8: [D, 3D] int8 (+[3D] scale/bias); wout_i8: [D, D]
-    int8 (+[D] scale/bias); ln_scale/ln_bias: [D].
-
-    ``valid_len``: when the caller keeps the token axis PRE-PADDED across a
-    whole transformer stack (pad once before block 0, slice after the last
-    block — saves a pad copy + slice copy of the [B, S, D] stream per
-    layer), pass the true sequence length here; S must then be a multiple
-    of 32 (int8 sublane tile).  Rows ≥ valid_len are masked as attention
-    KEYS (queries in the pad region produce bounded junk that the caller
-    discards).
-
-    ``head_pack=2``: run adjacent head PAIRS as single block-diagonal
-    score/pv dots (full K=128 contraction depth, half the dot count —
-    see ``_packed_pair_attention``); grouped path only.  MEASURED SLOWER
-    on v5e — ships OFF; kept as a recorded experiment (tools/ab_head_pack).
-
-    ``group``: process that many images per grid step so every projection
-    matmul runs at M = group·S (full 128-row MXU tiles at group=4 for
-    S=224 — see _qattn_group_kernel).  Requires B divisible by group;
-    falls back to per-image when it isn't.  Output is bit-identical.
-    The grouped path also RELAXES the pre-padded-S constraint: only the
-    flattened group needs int8 32-sublane tiles, so S may be any multiple
-    of 16 (bf16 sublane tile, for the per-image q/k/v row slices) with
-    group·S a multiple of 32 — e.g. S=208 instead of 224 for ViT-B/16's
-    197 tokens, which cuts 7% of every projection/MLP row and 14% of the
-    score elements (measured 132.6 vs 143.6 μs/img for the 12-layer
-    grouped stack).
-    """
-    b, s, d = x.shape
-    head_dim = d // num_heads
-    if not (_HAS_PALLAS and (_on_tpu() or force)):
-        h = _layernorm_f32(x.astype(jnp.float32), ln_scale, ln_bias)
-        qkv = quant_dense(h, wqkv_i8, sqkv, bqkv)
-        q, k, v = jnp.split(qkv, 3, axis=-1)
-
-        def to_heads(t):
-            return t.reshape(b, s, num_heads, head_dim)
-
-        q, k, v = to_heads(q), to_heads(k), to_heads(v)
-        attn = jnp.einsum("bqhd,bkhd->bhqk", q / np.sqrt(head_dim), k)
-        if valid_len is not None and valid_len < s:
-            key_ok = jnp.arange(s) < valid_len
-            attn = jnp.where(key_ok[None, None, None, :], attn, -1e30)
-        attn = jax.nn.softmax(attn.astype(jnp.float32), axis=-1)
-        ao = jnp.einsum("bhqk,bkhd->bqhd", attn, v.astype(jnp.float32))
-        ao = ao.reshape(b, s, d)
-        return x + quant_dense(ao, wout_i8, sout, bout).astype(x.dtype)
-
-    use_group = group > 1 and b % group == 0
-    if valid_len is None:
-        sp = required_seq_pad(s, group if use_group else 1)
-        xp = jnp.pad(x, ((0, 0), (0, sp - s), (0, 0)))
-        seq_len = s
-    else:
-        if use_group:
-            if required_seq_pad(s, group) != s:
-                raise ValueError(
-                    f"grouped pre-padded S={s} must be a multiple of 16 "
-                    f"with group·S a multiple of 32")
-            xp = x
-        elif s % 32 != 0:
-            # a RELAXED-S stream (padded to 16 for the grouped path) can
-            # reach the per-image kernel on a ragged batch (B % group != 0)
-            # — honor the documented fallback by re-padding to the
-            # per-image 32-sublane tile instead of raising; the extra rows
-            # join the already-masked pad-key region and are sliced off
-            if s % 16 != 0:
-                raise ValueError(
-                    f"pre-padded S={s} must be a multiple of 32 (or 16 "
-                    f"for the grouped path)")
-            sp32 = _round_up(s, 32)
-            xp = jnp.pad(x, ((0, 0), (0, sp32 - s), (0, 0)))
-        else:
-            xp = x
-        seq_len = valid_len
-    args = (xp, ln_scale.reshape(1, -1).astype(jnp.float32),
-            ln_bias.reshape(1, -1).astype(jnp.float32), wqkv_i8,
-            sqkv.reshape(1, -1).astype(jnp.float32),
-            bqkv.reshape(1, -1).astype(jnp.float32), wout_i8,
-            sout.reshape(1, -1).astype(jnp.float32),
-            bout.reshape(1, -1).astype(jnp.float32), seq_len, num_heads,
-            head_dim, jnp.dtype(x.dtype).name)
-    if head_pack not in (1, 2) or num_heads % head_pack:
-        raise ValueError(f"head_pack={head_pack} must be 1 or 2 and divide "
-                         f"num_heads={num_heads}")
-    if use_group:
-        out = _qattn_group_impl(*args, group, _fast(fast), score_i8,
-                                head_pack, _probe)
-    else:
-        # score_i8 is a grouped-path serving dial; the per-image fallback
-        # keeps bf16 score dots (it is the ragged-batch / oracle path)
-        out = _qattn_block_impl(*args, _fast(fast))
-    if valid_len is not None:
-        return out[:, :s, :] if out.shape[1] != s else out
-    return out[:, :s, :]
-
-
-# ------------------------------------------------ CLS-only attention (last layer)
-
-def _qattn_cls_group_kernel(x_ref, lns_ref, lnb_ref, wq_ref, wk_ref, wv_ref,
-                            sqkv_ref, bqkv_ref, wout_ref, sout_ref, bout_ref,
-                            o_ref, *, seq_len: int, num_heads: int,
-                            head_dim: int, group: int, fast: bool):
-    """Grouped attention sub-layer computing ONLY the CLS (row-0) output.
-
-    A serving ViT reads just the CLS token after the final transformer
-    layer (models/vit_int8.py post_ln on ``x[:, 0]``), so the last layer's
-    per-head block, output projection and MLP for the other Sp−1 rows is
-    pure waste.  This kernel keeps the full-stream work that the CLS row
-    DOES depend on — LayerNorm + quant + the K and V projections over all
-    rows — and shrinks everything downstream to the G CLS query rows:
-    score dots become [1, hd]×[hd, Sp], pv dots [1, Sp]×[Sp, hd+1], the
-    output projection and residual run on [G, D].
-
-    Bit-exactness: every surviving value goes through the same op chain as
-    in ``_qattn_group_kernel`` — LN and the per-row dynamic quant are
-    row-independent, the q projection / score / pv dots for row 0 contract
-    over identical operand rows in the same order, so the emitted CLS
-    features are IDENTICAL BITS to the full kernel's row 0 (asserted on
-    hardware in tests/test_quant_matmul.py::test_attention_cls_bit_identical).
-    Measured on the ViT-B/16 serving stack: replacing layer 12's full
-    attention+MLP with this kernel + a [B, D]-row MLP saves ~8 µs/img.
-    """
-    quant = _quant_rows_k if fast else _quant_rows
-    g, sp, d = x_ref.shape
-    xa = x_ref[...].astype(jnp.float32).reshape(g * sp, d)
-    h = _layernorm_f32(xa, lns_ref[...], lnb_ref[...])
-    hq, hs = quant(h)
-    # CLS rows only, re-derived from the same f32 inputs: LN + per-row quant
-    # are row-local, so these G rows carry exactly the bits of hq/hs rows
-    # {gi·Sp} without a strided int8 gather
-    x_cls = x_ref[:, 0, :].astype(jnp.float32)                  # [G, D]
-    h_cls = _layernorm_f32(x_cls, lns_ref[...], lnb_ref[...])
-    hq_cls, hs_cls = quant(h_cls)
-    scale = float(np.log2(np.e) / np.sqrt(head_dim))
-
-    def proj(rows, row_scale, w_ref, sl, fold):
-        acc = jax.lax.dot(rows, w_ref[...], preferred_element_type=jnp.int32)
-        f = scale if fold else 1.0
-        return (acc.astype(jnp.float32) * row_scale * (sqkv_ref[:, sl] * f)
-                + bqkv_ref[:, sl] * f).astype(jnp.bfloat16)
-
-    q16 = proj(hq_cls, hs_cls, wq_ref, slice(0, d), True)       # [G, D]
-    k16 = proj(hq, hs, wk_ref, slice(d, 2 * d), False)          # [G·Sp, D]
-    v16 = proj(hq, hs, wv_ref, slice(2 * d, 3 * d), False)
-    rowi = jax.lax.broadcasted_iota(jnp.int32, (sp, 1), 0)
-    valid = (rowi < seq_len).astype(jnp.bfloat16)
-    outs = []
-    for gi in range(g):
-        r0 = gi * sp
-        q_cls = q16[gi:gi + 1]                                  # [1, D]
-        heads = []
-        for i in range(num_heads):
-            lo = i * head_dim
-            q = q_cls[:, lo:lo + head_dim]
-            k = k16[r0:r0 + sp, lo:lo + head_dim]
-            v = v16[r0:r0 + sp, lo:lo + head_dim]
-            v_ext = jnp.concatenate([v * valid, valid], axis=1)
-            s = jax.lax.dot_general(
-                q, k, dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32)             # [1, Sp]
-            p = jnp.exp2(jnp.clip(s, SCORE_CLAMP_LO,
-                                  SCORE_CLAMP_HI)).astype(jnp.bfloat16)
-            o_ext = jax.lax.dot(p, v_ext, preferred_element_type=jnp.float32)
-            den = o_ext[:, head_dim:head_dim + 1]
-            heads.append(o_ext[:, :head_dim] * _recip(den) if fast
-                         else o_ext[:, :head_dim] / den)
-        outs.append(jnp.concatenate(heads, axis=1))             # [1, D]
-    ao = jnp.concatenate(outs, axis=0)                          # [G, D]
-    aq, ascale = quant(ao)
-    out = (jax.lax.dot(aq, wout_ref[...],
-                       preferred_element_type=jnp.int32).astype(jnp.float32)
-           * ascale * sout_ref[...] + bout_ref[...])
-    # output carried as [G, 1, D] — Mosaic block shapes need the last two
-    # dims tile-aligned or equal to the array's, and G=4 < 8 sublanes
-    o_ref[...] = (x_cls + out).astype(o_ref.dtype).reshape(g, 1, d)
-
-
-@functools.partial(jax.jit, static_argnames=("seq_len", "num_heads",
-                                             "head_dim", "out_dtype",
-                                             "group", "fast"))
-def _qattn_cls_group_impl(x, lns, lnb, wqkv, sqkv, bqkv, wout, sout, bout,
-                          seq_len, num_heads, head_dim, out_dtype, group,
-                          fast=True):
-    b, sp, d = x.shape
-    xspec = pl.BlockSpec((group, sp, d), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM)
-
-    def const(shape):
-        return pl.BlockSpec(shape, lambda i: (0,) * len(shape),
-                            memory_space=pltpu.VMEM)
-
-    flops = b * (2 * sp * d * 2 * d + 2 * d * 3 * d + 4 * sp * d + 2 * d * d)
-    return pl.pallas_call(
-        functools.partial(_qattn_cls_group_kernel, seq_len=seq_len,
-                          num_heads=num_heads, head_dim=head_dim,
-                          group=group, fast=fast),
-        grid=(b // group,),
-        in_specs=[xspec, const(lns.shape), const(lnb.shape),
-                  const((d, d)), const((d, d)), const((d, d)),
-                  const(sqkv.shape), const(bqkv.shape),
-                  const(wout.shape), const(sout.shape), const(bout.shape)],
-        out_specs=pl.BlockSpec((group, 1, d), lambda i: (i, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((b, 1, d), out_dtype),
-        cost_estimate=pl.CostEstimate(
-            flops=flops, bytes_accessed=2 * b * sp * d + 4 * d * d,
-            transcendentals=b * num_heads * sp),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=64 * 1024 * 1024,
-            dimension_semantics=("parallel",)),
-    )(x, lns, lnb, wqkv[:, :d], wqkv[:, d:2 * d], wqkv[:, 2 * d:],
-      sqkv, bqkv, wout, sout, bout)
-
-
-def quant_attention_cls(x: jax.Array, ln_scale: jax.Array,
-                        ln_bias: jax.Array, wqkv_i8: jax.Array,
-                        sqkv: jax.Array, bqkv: jax.Array,
-                        wout_i8: jax.Array, sout: jax.Array,
-                        bout: jax.Array, num_heads: int,
-                        valid_len: int | None = None,
-                        force: bool = False,
-                        fast: bool | None = None,
-                        group: int = 4) -> jax.Array:
-    """Row 0 (CLS) of ``quant_attention_block(...)``, bit-identically,
-    without computing the non-CLS query work — returns [B, D].
-
-    Use for the LAST transformer layer of a CLS-read-out ViT: the other
-    S−1 rows' attention outputs, output projection and MLP feed nothing
-    (models/vit_int8.py Int8CLSBlock).  The fused kernel path needs the
-    serving configuration (pre-padded S via ``valid_len``, B divisible by
-    ``group``); anything else falls back to the full sub-layer + row slice
-    — same bits either way.
-    """
-    b, s, d = x.shape
-    if (_HAS_PALLAS and (_on_tpu() or force) and group > 1
-            and b % group == 0 and valid_len is not None
-            and required_seq_pad(s, group) == s):
-        return _qattn_cls_group_impl(
-            x, ln_scale.reshape(1, -1).astype(jnp.float32),
-            ln_bias.reshape(1, -1).astype(jnp.float32), wqkv_i8,
-            sqkv.reshape(1, -1).astype(jnp.float32),
-            bqkv.reshape(1, -1).astype(jnp.float32), wout_i8,
-            sout.reshape(1, -1).astype(jnp.float32),
-            bout.reshape(1, -1).astype(jnp.float32), valid_len, num_heads,
-            d // num_heads, jnp.dtype(x.dtype).name, group,
-            _fast(fast))[:, 0, :]
-    return quant_attention_block(x, ln_scale, ln_bias, wqkv_i8, sqkv, bqkv,
-                                 wout_i8, sout, bout, num_heads,
-                                 valid_len=valid_len, force=force,
-                                 fast=fast, group=group)[:, 0, :]
-
-
-def _mlp_sublayer_f32(x, lns, lnb, w1_ref, s1, b1, w2_ref, s2, b2,
-                      fast: bool = True):
-    """Shared in-VMEM MLP sub-layer body (pre-residual output)."""
-    quant = _quant_rows_k if fast else _quant_rows
-    h = _layernorm_f32(x, lns, lnb)
-    hq, hs = quant(h)
-    acc1 = jax.lax.dot(hq, w1_ref[...], preferred_element_type=jnp.int32)
-    g = acc1.astype(jnp.float32) * hs * s1 + b1
-    g = _quick_gelu_k(g) if fast else _quick_gelu(g)
-    gq, gs = quant(g)
-    acc2 = jax.lax.dot(gq, w2_ref[...], preferred_element_type=jnp.int32)
-    return acc2.astype(jnp.float32) * gs * s2 + b2
-
-
-def _qmlp_block_kernel(x_ref, lns_ref, lnb_ref, w1_ref, s1_ref, b1_ref,
-                       w2_ref, s2_ref, b2_ref, o_ref, *, fast, split=1):
-    x = x_ref[...].astype(jnp.float32)
-    if split <= 1:
-        out = _mlp_sublayer_f32(x, lns_ref[...], lnb_ref[...], w1_ref,
-                                s1_ref[...], b1_ref[...], w2_ref,
-                                s2_ref[...], b2_ref[...], fast=fast)
-    else:
-        # Partition the M-tile into `split` row-independent sub-chains so
-        # Mosaic can overlap one half's gelu/quant (VPU) with the other
-        # half's int8 dots (MXU) — the single-chain dot1→gelu→quant→dot2
-        # dependency otherwise idles the MXU during every VPU stage.
-        # Bit-identical: LN, per-ROW dynamic quant, gelu and both matmuls
-        # are all row-independent.
-        mt = x.shape[0] // split
-        out = jnp.concatenate(
-            [_mlp_sublayer_f32(x[i * mt:(i + 1) * mt], lns_ref[...],
-                               lnb_ref[...], w1_ref, s1_ref[...],
-                               b1_ref[...], w2_ref, s2_ref[...],
-                               b2_ref[...], fast=fast)
-             for i in range(split)], axis=0)
-    o_ref[...] = (x + out).astype(o_ref.dtype)
-
-
-@functools.partial(jax.jit, static_argnames=("m_tile", "out_dtype", "fast",
-                                             "split", "par"))
-def _qmlp_block_2d(x, lns, lnb, w1, s1, b1, w2, s2, b2, m_tile, out_dtype,
-                   fast=True, split=1, par=True):
-    m, k = x.shape
-    h = w1.shape[1]
-
-    def const(shape):
-        return pl.BlockSpec(shape, lambda i: (0,) * len(shape),
-                            memory_space=pltpu.VMEM)
-
-    return pl.pallas_call(
-        functools.partial(_qmlp_block_kernel, fast=fast, split=split),
-        grid=(m // m_tile,),
-        in_specs=[
-            pl.BlockSpec((m_tile, k), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            const((1, k)), const((1, k)),
-            const((k, h)), const((1, h)), const((1, h)),
-            const((h, k)), const((1, k)), const((1, k)),
-        ],
-        out_specs=pl.BlockSpec((m_tile, k), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((m, k), out_dtype),
-        cost_estimate=pl.CostEstimate(
-            flops=4 * m * k * h,
-            bytes_accessed=2 * m * k * 2 + 2 * k * h,
-            transcendentals=m * h),
-        # M tiles are row-independent; ``par`` is the A/B dial for
-        # declaring the grid parallel (see quant_mlp_block).  The raised
-        # VMEM cap admits m_tile ≥ 832 (the [m_tile, 3072] f32 hidden)
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=64 * 1024 * 1024,
-            dimension_semantics=(("parallel",) if par else None)),
-    )(x, lns, lnb, w1, s1.reshape(1, -1), b1.reshape(1, -1),
-      w2, s2.reshape(1, -1), b2.reshape(1, -1))
-
-
-def quant_mlp_block(x: jax.Array, ln_scale: jax.Array, ln_bias: jax.Array,
-                    w1_i8: jax.Array, s1: jax.Array, b1: jax.Array,
-                    w2_i8: jax.Array, s2: jax.Array, b2: jax.Array,
-                    m_tile: int = 256, force: bool = False,
-                    fast: bool | None = None, split: int = 1,
-                    par: bool = True) -> jax.Array:
-    """Fused ``x + mlp(LayerNorm(x))`` (dense→quick_gelu→dense, residual
-    included) as one Pallas kernel with int8 matmuls; the [M, mlp_dim]
-    hidden lives only in VMEM.
-
-    ``split``: partition each M-tile into that many row-independent
-    sub-chains inside the kernel (VPU/MXU overlap — see
-    _qmlp_block_kernel); must divide ``m_tile``; bit-identical output.
-    """
-    if m_tile % split:
-        raise ValueError(f"split={split} must divide m_tile={m_tile}")
-    *lead, k = x.shape
-    if not (_HAS_PALLAS and (_on_tpu() or force)):
-        h = _layernorm_f32(x.astype(jnp.float32), ln_scale, ln_bias)
-        return x + quant_mlp(h, w1_i8, s1, b1, w2_i8, s2, b2).astype(x.dtype)
-
-    m = int(np.prod(lead)) if lead else 1
-    x2 = x.reshape(m, k)
-    mp = _round_up(max(m, m_tile), m_tile)
-    if mp != m:
-        x2 = jnp.pad(x2, ((0, mp - m), (0, 0)))
-    out = _qmlp_block_2d(
-        x2, ln_scale.reshape(1, -1).astype(jnp.float32),
-        ln_bias.reshape(1, -1).astype(jnp.float32), w1_i8,
-        s1.astype(jnp.float32), b1.astype(jnp.float32), w2_i8,
-        s2.astype(jnp.float32), b2.astype(jnp.float32), m_tile,
-        jnp.dtype(x.dtype).name, _fast(fast), split, par)
-    return out[:m].reshape(*lead, k)
-
-
-# --------------------------------------------------- whole-layer fused block
-
-def _qlayer_kernel(x_ref, ln1s_ref, ln1b_ref, wqkv_ref, sqkv_ref, bqkv_ref,
-                   wout_ref, sout_ref, bout_ref, ln2s_ref, ln2b_ref, w1_ref,
-                   s1_ref, b1_ref, w2_ref, s2_ref, b2_ref, o_ref, *,
-                   seq_len: int, num_heads: int, head_dim: int, fast: bool):
-    x = x_ref[0].astype(jnp.float32)
-    x = x + _attn_sublayer_f32(x, ln1s_ref[...], ln1b_ref[...], wqkv_ref,
-                               sqkv_ref[...], bqkv_ref[...], wout_ref,
-                               sout_ref[...], bout_ref[...], seq_len,
-                               num_heads, head_dim, fast=fast)
-    out = _mlp_sublayer_f32(x, ln2s_ref[...], ln2b_ref[...], w1_ref,
-                            s1_ref[...], b1_ref[...], w2_ref, s2_ref[...],
-                            b2_ref[...], fast=fast)
-    o_ref[0] = (x + out).astype(o_ref.dtype)
-
-
-@functools.partial(jax.jit, static_argnames=("seq_len", "num_heads",
-                                             "head_dim", "out_dtype",
-                                             "fast"))
-def _qlayer_impl(x, ln1s, ln1b, wqkv, sqkv, bqkv, wout, sout, bout, ln2s,
-                 ln2b, w1, s1, b1, w2, s2, b2, seq_len, num_heads, head_dim,
-                 out_dtype, fast=True):
-    b, sp, d = x.shape
-    mlp_dim = w1.shape[1]
-    xspec = pl.BlockSpec((1, sp, d), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM)
-
-    def const(shape):
-        return pl.BlockSpec(shape, lambda i: (0,) * len(shape),
-                            memory_space=pltpu.VMEM)
-
-    flops = b * (2 * sp * d * 3 * d + 4 * sp * sp * d + 2 * sp * d * d
-                 + 4 * sp * d * mlp_dim)
-    return pl.pallas_call(
-        functools.partial(_qlayer_kernel, seq_len=seq_len,
-                          num_heads=num_heads, head_dim=head_dim, fast=fast),
-        grid=(b,),
-        in_specs=[xspec,
-                  const(ln1s.shape), const(ln1b.shape),
-                  const(wqkv.shape), const(sqkv.shape), const(bqkv.shape),
-                  const(wout.shape), const(sout.shape), const(bout.shape),
-                  const(ln2s.shape), const(ln2b.shape),
-                  const(w1.shape), const(s1.shape), const(b1.shape),
-                  const(w2.shape), const(s2.shape), const(b2.shape)],
-        out_specs=xspec,
-        out_shape=jax.ShapeDtypeStruct((b, sp, d), out_dtype),
-        cost_estimate=pl.CostEstimate(
-            flops=flops,
-            bytes_accessed=2 * 2 * b * sp * d + 4 * d * d + 2 * d * mlp_dim,
-            transcendentals=b * (num_heads * sp * sp + sp * mlp_dim)),
-    )(x, ln1s, ln1b, wqkv, sqkv, bqkv, wout, sout, bout, ln2s, ln2b,
-      w1, s1, b1, w2, s2, b2)
-
-
-def _qlayer_group_kernel(x_ref, lns1_ref, lnb1_ref, wqkv_ref, sqkv_ref,
-                         bqkv_ref, wout_ref, sout_ref, bout_ref, lns2_ref,
-                         lnb2_ref, w1_ref, s1_ref, b1_ref, w2_ref, s2_ref,
-                         b2_ref, o_ref, *, seq_len: int, num_heads: int,
-                         head_dim: int, group: int, fast: bool,
-                         mlp_split: int):
-    """WHOLE pre-LN layer for ``group`` images per grid step — the int8
-    twin of ops/bf16_layer._bf16_layer_kernel, combining the grouped
-    attention body (_qattn_group_kernel) and the flattened-M MLP body in
-    ONE program so the residual stream touches HBM once per LAYER instead
-    of once per sub-layer.
-
-    At group=2 (M = 416 rows) the qkv projection runs as ONE [D, 3D] int8
-    dot — the f32 accumulator [416, 2304] fits VMEM comfortably, unlike
-    the g4 attention kernel that must split q/k/v.  ``mlp_split`` chunks
-    the MLP rows (VPU/MXU overlap + smaller hidden footprint), same trick
-    as _qmlp_block_kernel.
-    """
-    quant = _quant_rows_k if fast else _quant_rows
-    g, sp, d = x_ref.shape
-    xa = x_ref[...].astype(jnp.float32).reshape(g * sp, d)
-
-    # ---- attention sub-layer ----
-    h = _layernorm_f32(xa, lns1_ref[...], lnb1_ref[...])
-    hq, hs = quant(h)
-    scale = float(np.log2(np.e) / np.sqrt(head_dim))
-    colid = jax.lax.broadcasted_iota(jnp.int32, (1, 3 * d), 1)
-    qcol = colid < d                                  # fold scale into q
-    sqkv = jnp.where(qcol, sqkv_ref[...] * scale, sqkv_ref[...])
-    bqkv = jnp.where(qcol, bqkv_ref[...] * scale, bqkv_ref[...])
-    qkv16 = ((jax.lax.dot(hq, wqkv_ref[...],
-                          preferred_element_type=jnp.int32)
-              .astype(jnp.float32) * hs * sqkv + bqkv)
-             .astype(jnp.bfloat16))                       # [G·Sp, 3D]
-    rowi = jax.lax.broadcasted_iota(jnp.int32, (sp, 1), 0)
-    valid = (rowi < seq_len).astype(jnp.bfloat16)
-    aos = []
-    for gi in range(g):
-        r0 = gi * sp
-        heads = []
-        for i in range(num_heads):
-            lo = i * head_dim
-            q = qkv16[r0:r0 + sp, lo:lo + head_dim]
-            k = qkv16[r0:r0 + sp, d + lo:d + lo + head_dim]
-            v = qkv16[r0:r0 + sp, 2 * d + lo:2 * d + lo + head_dim]
-            v_ext = jnp.concatenate([v * valid, valid], axis=1)
-            s = jax.lax.dot_general(
-                q, k, dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32)
-            p = jnp.exp2(jnp.clip(s, SCORE_CLAMP_LO,
-                                  SCORE_CLAMP_HI)).astype(jnp.bfloat16)
-            o_ext = jax.lax.dot(p, v_ext, preferred_element_type=jnp.float32)
-            den = o_ext[:, head_dim:head_dim + 1]
-            heads.append(o_ext[:, :head_dim] * _recip(den) if fast
-                         else o_ext[:, :head_dim] / den)
-        aos.append(jnp.concatenate(heads, axis=1))
-    ao = jnp.concatenate(aos, axis=0)                     # [G·Sp, D]
-    aq, ascale = quant(ao)
-    x1 = xa + (jax.lax.dot(aq, wout_ref[...],
-                           preferred_element_type=jnp.int32)
-               .astype(jnp.float32) * ascale * sout_ref[...]
-               + bout_ref[...])
-
-    # ---- MLP sub-layer, hidden VMEM-only ----
-    m = g * sp
-    mc = m // mlp_split
-    out = jnp.concatenate(
-        [_mlp_sublayer_f32(x1[i * mc:(i + 1) * mc], lns2_ref[...],
-                           lnb2_ref[...], w1_ref, s1_ref[...], b1_ref[...],
-                           w2_ref, s2_ref[...], b2_ref[...], fast=fast)
-         for i in range(mlp_split)], axis=0)
-    o_ref[...] = (x1 + out).reshape(g, sp, d).astype(o_ref.dtype)
-
-
-@functools.partial(jax.jit, static_argnames=("seq_len", "num_heads",
-                                             "head_dim", "out_dtype",
-                                             "group", "fast", "mlp_split"))
-def _qlayer_group_impl(x, lns1, lnb1, wqkv, sqkv, bqkv, wout, sout, bout,
-                       lns2, lnb2, w1, s1, b1, w2, s2, b2, seq_len,
-                       num_heads, head_dim, out_dtype, group, fast=True,
-                       mlp_split=2):
-    b, sp, d = x.shape
-    mlp_dim = w1.shape[1]
-    xspec = pl.BlockSpec((group, sp, d), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM)
-
-    def const(shape):
-        return pl.BlockSpec(shape, lambda i: (0,) * len(shape),
-                            memory_space=pltpu.VMEM)
-
-    flops = b * (2 * sp * d * 3 * d + 4 * sp * sp * d + 2 * sp * d * d
-                 + 4 * sp * d * mlp_dim)
-    return pl.pallas_call(
-        functools.partial(_qlayer_group_kernel, seq_len=seq_len,
-                          num_heads=num_heads, head_dim=head_dim,
-                          group=group, fast=fast, mlp_split=mlp_split),
-        grid=(b // group,),
-        in_specs=[xspec,
-                  const(lns1.shape), const(lnb1.shape),
-                  const(wqkv.shape), const(sqkv.shape), const(bqkv.shape),
-                  const(wout.shape), const(sout.shape), const(bout.shape),
-                  const(lns2.shape), const(lnb2.shape),
-                  const(w1.shape), const(s1.shape), const(b1.shape),
-                  const(w2.shape), const(s2.shape), const(b2.shape)],
-        out_specs=xspec,
-        out_shape=jax.ShapeDtypeStruct((b, sp, d), out_dtype),
-        cost_estimate=pl.CostEstimate(
-            flops=flops,
-            bytes_accessed=2 * 2 * b * sp * d + 4 * d * d + 2 * d * mlp_dim,
-            transcendentals=b * (num_heads * sp * sp + sp * mlp_dim)),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024),
-    )(x, lns1, lnb1, wqkv, sqkv, bqkv, wout, sout, bout, lns2, lnb2,
-      w1, s1, b1, w2, s2, b2)
-
-
-def quant_layer_group(x: jax.Array,
-                      ln1_scale: jax.Array, ln1_bias: jax.Array,
-                      wqkv_i8: jax.Array, sqkv: jax.Array, bqkv: jax.Array,
-                      wout_i8: jax.Array, sout: jax.Array, bout: jax.Array,
-                      ln2_scale: jax.Array, ln2_bias: jax.Array,
-                      w1_i8: jax.Array, s1: jax.Array, b1: jax.Array,
-                      w2_i8: jax.Array, s2: jax.Array, b2: jax.Array,
-                      num_heads: int, valid_len: int | None = None,
-                      group: int = 2, mlp_split: int = 2,
-                      force: bool = False,
-                      fast: bool | None = None) -> jax.Array:
-    """One WHOLE pre-LN transformer layer for ``group`` images per grid
-    step (see _qlayer_group_kernel).  Pre-padded-stream contract as the
-    grouped attention path: S a multiple of 16 with group·S a multiple of
-    32, ``valid_len`` = true length.  Falls back to the attention+MLP
-    kernel pair for ragged batches, and to the XLA oracle off-TPU.
-    """
-    b, s, d = x.shape
-    head_dim = d // num_heads
-    on = _HAS_PALLAS and (_on_tpu() or force)
-    if not on or b % group != 0 or valid_len is None:
-        x = quant_attention_block(x, ln1_scale, ln1_bias, wqkv_i8, sqkv,
-                                  bqkv, wout_i8, sout, bout, num_heads,
-                                  valid_len=valid_len, force=force,
-                                  group=group if b % group == 0 else 1,
-                                  fast=fast)
-        return quant_mlp_block(x, ln2_scale, ln2_bias, w1_i8, s1, b1,
-                               w2_i8, s2, b2, force=force, fast=fast)
-    if required_seq_pad(s, group) != s:
-        raise ValueError(f"grouped pre-padded S={s} must be a multiple of "
-                         f"16 with group·S a multiple of 32")
-
-    def row(v):
-        return v.reshape(1, -1).astype(jnp.float32)
-
-    return _qlayer_group_impl(
-        x, row(ln1_scale), row(ln1_bias), wqkv_i8, row(sqkv), row(bqkv),
-        wout_i8, row(sout), row(bout), row(ln2_scale), row(ln2_bias),
-        w1_i8, row(s1), row(b1), w2_i8, row(s2), row(b2), valid_len,
-        num_heads, head_dim, jnp.dtype(x.dtype).name, group, _fast(fast),
-        mlp_split)
-
-
-def quant_layer_block(x: jax.Array,
-                      ln1_scale: jax.Array, ln1_bias: jax.Array,
-                      wqkv_i8: jax.Array, sqkv: jax.Array, bqkv: jax.Array,
-                      wout_i8: jax.Array, sout: jax.Array, bout: jax.Array,
-                      ln2_scale: jax.Array, ln2_bias: jax.Array,
-                      w1_i8: jax.Array, s1: jax.Array, b1: jax.Array,
-                      w2_i8: jax.Array, s2: jax.Array, b2: jax.Array,
-                      num_heads: int, valid_len: int | None = None,
-                      force: bool = False,
-                      fast: bool | None = None) -> jax.Array:
-    """One WHOLE pre-LN transformer layer (attention sub-layer + MLP
-    sub-layer, both residuals) as a single Pallas program per batch element:
-    all four int8 weight matrices stay VMEM-resident across the grid and the
-    residual stream touches HBM once per layer instead of twice.
-
-    x: [B, S, D] with S a multiple of 32 when ``valid_len`` is given (see
-    quant_attention_block for the pre-padded-stream contract).
-    """
-    b, s, d = x.shape
-    head_dim = d // num_heads
-    if not (_HAS_PALLAS and (_on_tpu() or force)):
-        x = quant_attention_block(x, ln1_scale, ln1_bias, wqkv_i8, sqkv,
-                                  bqkv, wout_i8, sout, bout, num_heads,
-                                  valid_len=valid_len)
-        return quant_mlp_block(x, ln2_scale, ln2_bias, w1_i8, s1, b1,
-                               w2_i8, s2, b2)
-
-    if valid_len is None:
-        sp = _round_up(max(s, 32), 32)
-        xp = jnp.pad(x, ((0, 0), (0, sp - s), (0, 0)))
-        seq_len = s
-    else:
-        if s % 32 != 0:
-            raise ValueError(f"pre-padded S={s} must be a multiple of 32")
-        xp, seq_len = x, valid_len
-
-    def row(v):
-        return v.reshape(1, -1).astype(jnp.float32)
-
-    out = _qlayer_impl(xp, row(ln1_scale), row(ln1_bias), wqkv_i8,
-                       row(sqkv), row(bqkv), wout_i8, row(sout), row(bout),
-                       row(ln2_scale), row(ln2_bias), w1_i8, row(s1),
-                       row(b1), w2_i8, row(s2), row(b2), seq_len, num_heads,
-                       head_dim, jnp.dtype(x.dtype).name, _fast(fast))
-    return out if valid_len is not None else out[:, :s, :]
+    h = _quick_gelu(_int8_matmul(x, w1_i8, s1, b1))
+    return _int8_matmul(h, w2_i8, s2, b2).astype(x.dtype)

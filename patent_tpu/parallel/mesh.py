@@ -6,9 +6,10 @@ scaling here is a first-class new component.  The framework uses at most a
 
 * ``data``  — batch-sharded image encoding / training (pjit data parallel);
   also the gallery axis of the sharded retrieval index (rows of the index
-  live on different chips, candidates merge over ICI — retrieval/index.py).
+  live on different devices, candidates merge in one all-gather —
+  retrieval/index.py).
 * ``model`` — tensor-parallel axis for the ViT MLC/attention blocks and the
-  hyperbolic label table when either outgrows one chip's HBM.
+  hyperbolic label table when either outgrows one device's memory.
 
 Helpers return ``NamedSharding`` rules for each logical array family, and
 ``encode_sharded`` wraps an encoder apply in pjit with batch sharding.
@@ -58,7 +59,7 @@ def label_table_sharding(mesh: Mesh) -> NamedSharding:
 
 def encode_sharded(mesh: Mesh, apply_fn, params, batch_axis: str = "data"):
     """jit an encoder apply with the batch sharded over ``mesh[batch_axis]``
-    and params replicated: XLA inserts the all-gathers; ICI carries them.
+    and params replicated: XLA inserts the all-gathers.
 
     Params are jit ARGUMENTS (device-resident, replicated), never closure
     constants — closed-over weights get baked into the HLO, which bloats the

@@ -9,7 +9,7 @@ module is the framework's multi-chip training path for ``train_hyp``:
 * the hyperbolic label table — the one parameter that grows with corpus
   size (LABEL_NUM ≈ patents + CPCs; 14k for the 2018 corpus, reference
   train.py:3878, linear in patents) — row-sharded over ``model``; gathers
-  of positive/negative label rows become XLA all-gathers over ICI,
+  of positive/negative label rows become XLA all-gathers,
 * encoder params replicated (they are small: ~2 MobiusDense layers).
 
 Validated on the virtual CPU mesh in tests: the sharded step's loss equals
@@ -109,8 +109,8 @@ def make_sharded_train_step(mesh: Mesh, model: HyperbolicEmbeddingModel,
 
     Batch arrays are sharded over ``data``; the figure feature matrix — the
     other array that grows with corpus size — is ROW-SHARDED over ``data``
-    (GSPMD turns the batch gather into collective traffic over ICI instead
-    of keeping N full copies in HBM); implication/exclusion pair lists are
+    (GSPMD turns the batch gather into collective traffic instead of
+    keeping N full copies in device memory); implication/exclusion pair lists are
     small and stay replicated; XLA inserts the gradient psum over ``data``
     and the label-row all-gathers over ``model``.
 

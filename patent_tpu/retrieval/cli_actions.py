@@ -59,10 +59,9 @@ def _build_encoder(args, image_size: int):
     # opt-in ink-mass token selection (models/vit.py ink_topk_indices):
     # patent drawings are mostly blank paper, so serving only the K
     # darkest patches (+CLS) trades measured quality for throughput —
-    # keep_tokens=127 (S=128, exact int8 tiles, zero pad rows) measures
-    # 11,821 vs 7,284 img/s int8 on v5e (official bench), pruned-vs-full feature cosine
-    # ≥0.991 on drawing-like inputs; views-corpus battery deltas are
-    # pinned in tests/test_finetune_lift.py::test_pruned_serving_quality.
+    # pruned-vs-full feature cosine ≥0.991 at keep_tokens=127 on
+    # drawing-like inputs; views-corpus battery deltas are pinned in
+    # tests/test_finetune_lift.py::test_pruned_serving_quality.
     # Normalized HERE (and written back to args) so the model, the
     # _kt<K> index tag, and the log always agree: ≤0 is rejected, and
     # keep ≥ num_patches — where the model serves the exact tower — maps
@@ -76,12 +75,8 @@ def _build_encoder(args, image_size: int):
                   f"serving the exact (unpruned) tower")
             keep = None
         args.keep_tokens = keep
-    # fused_layer: the WHOLE transformer layer as one Pallas kernel
-    # (ops/bf16_layer.py) — 4,518 vs 3,650 img/s over the round-3
-    # fused-attention-sublayer path on v5e (tools/ab_bf16_layer.py,
-    # min cos 0.999975), by keeping the MLP hidden + LN/residual stream
-    # in VMEM; inference-only (no VJP), which is exactly this serving path
-    model = VisionTransformer(config, dtype=jnp.bfloat16, fused_layer=True,
+    # bf16 tower; only the CLS row of the last layer is computed
+    model = VisionTransformer(config, dtype=jnp.bfloat16, cls_last=True,
                               keep_tokens=keep)
     finetuned = os.path.join(args.path, "models", "clip_finetune_best")
     weights_tag = "rand"
@@ -109,8 +104,8 @@ def _build_encoder(args, image_size: int):
         ft_params = state["params"]["vit"]
         # the checkpoint may come from a finetune at a DIFFERENT
         # resolution/config (e.g. the 64px synthetic tower) — restoring it
-        # into this config crashes deep inside flax with a bare shape
-        # error; check the patch-embed width up front and fall back
+        # into this config crashes deep inside the tower with a bare
+        # shape error; check the patch-embed width up front and fall back
         ft_hidden = ft_params["patch_embed"]["kernel"].shape[-1]
         if ft_hidden != config.hidden_dim:
             print(f"[patent_tpu] WARNING: {finetuned} was trained with "
@@ -134,9 +129,8 @@ def _build_encoder(args, image_size: int):
               "(pass --checkpoint <hf_clip_dir> for trained weights)")
     if getattr(args, "quantize", False):
         # int8 PTQ serving path: same params, quantized once at load time,
-        # executed by the fused dynamic-quant kernels (ops/quant_matmul) —
-        # measured 7,284 vs 3,645 img/s on v5e (official bench, 2.0x),
-        # min feature cosine 0.99978 on drawing-like inputs
+        # int8 products through ops/quant_matmul; min feature cosine ≥0.99
+        # vs the float tower on drawing-like inputs (tests)
         from ..models.vit_int8 import Int8VisionTransformer, quantize_vit_params
 
         model = Int8VisionTransformer(config, dtype=jnp.bfloat16,
@@ -148,9 +142,9 @@ def _build_encoder(args, image_size: int):
               f"{config.num_patches} patches per image")
     # device-side normalization: the engine feeds raw uint8 batches
     # (input_dtype="u8" below) — 4× less host→device transfer, and XLA
-    # fuses the normalize into the patch-embed conv (measured: the
-    # weight-folded variant — fold_u8=True — is within noise, 6,400 vs
-    # 6,376 img/s on v5e, so the default keeps the golden-pinned rounding)
+    # fuses the normalize into the patch-embed conv (the weight-folded
+    # variant, fold_u8=True, is not the default: the default keeps the
+    # golden-pinned rounding)
     from .engine import make_device_normalizing_encoder
 
     return make_device_normalizing_encoder(model.apply, params), weights_tag

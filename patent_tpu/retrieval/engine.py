@@ -1,6 +1,6 @@
 """End-to-end retrieval engine: encode gallery → index → query → metrics.
 
-The TPU-native equivalent of ``ImageRetrieval`` + the batch evaluation script
+The JAX equivalent of ``ImageRetrieval`` + the batch evaluation script
 (notebooks/retrieval.ipynb cells 2-3): encode the gallery with a jitted
 (optionally pjit-data-parallel) encoder, persist embeddings in the
 reference's ``.npy`` + paths-JSON layout, answer queries with the sharded
@@ -42,8 +42,8 @@ def make_device_normalizing_encoder(apply_fn, params, fold_u8: bool = False):
 
     ``fold_u8=True`` folds the normalization into the patch-embed weights
     instead (fold_u8_normalize_params): uint8 batches then feed the tower
-    raw, skipping the normalize pass over the C=3-minor-layout pixel stream
-    (the slow layout on TPU).  The folded encoder accepts ONLY uint8."""
+    raw, skipping the normalize pass over the C=3-minor-layout pixel
+    stream.  The folded encoder accepts ONLY uint8."""
     from ..input.pipeline import device_normalize
 
     if fold_u8:
@@ -126,11 +126,9 @@ class RetrievalEngine:
         on high-latency device links; used when ``scan_batches > 1``.
 
         ``input_dtype``: "u8" feeds raw uint8 RGB batches and normalizes on
-        device — 4× less host→device transfer, which is the encode
-        bottleneck at production rates (measured on this link: 63 img/s f32
-        vs 154 u8 wire-limited; the reference normalizes on host workers,
-        retrieval.ipynb cell 2 — on TPU the normalize fuses into the patch
-        conv for free).  The default "f32" feeds host-normalized batches.
+        device — 4× less host→device transfer (the reference normalizes on
+        host workers, retrieval.ipynb cell 2; here XLA fuses the normalize
+        into the patch conv).  The default "f32" feeds host-normalized batches.
         ``encode_fn`` must accept the chosen dtype: make_scan_encoder and
         make_device_normalizing_encoder handle u8; a bare ``model.apply``
         jit needs f32 — hence u8 is opt-in.

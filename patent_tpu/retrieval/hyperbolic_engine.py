@@ -13,15 +13,17 @@ capability extension.
 
 from __future__ import annotations
 
-from typing import Mapping, Sequence
+from typing import TYPE_CHECKING, Mapping, Sequence
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from ..metrics import RetrievalMetrics, evaluate_rankings
-from ..models.hyperbolic import HyperbolicEmbeddingModel
 from .index import EmbeddingIndex
+
+if TYPE_CHECKING:
+    from ..models.hyperbolic import HyperbolicEmbeddingModel
 
 
 class HyperbolicRetrievalEngine:
@@ -34,14 +36,13 @@ class HyperbolicRetrievalEngine:
         names: per-row figure names (image-index order).
     """
 
-    def __init__(self, model: HyperbolicEmbeddingModel, params: dict,
+    def __init__(self, model: "HyperbolicEmbeddingModel", params: dict,
                  features: np.ndarray, names: Sequence[str],
                  batch_size: int = 512, mesh=None, quantized: bool = False):
         """``quantized=True``: the gallery lives on device as per-row int8
-        + f32 affine rows and searches run the fused Poincaré candidate kernel
-        with an exact f64 re-rank (ops/topk_kernel.bucket_topk_poincare) —
-        measured multiples of the exact scan's QPS at 1M scale (bench
-        ``topk_qps_1M_poincare_fused``) at a quarter of the f32 HBM."""
+        + f32 affine rows and searches run the int8 Poincaré candidate
+        stage with an exact f64 re-rank (retrieval/index.
+        topk_search_poincare_fast) at a quarter of the f32 device memory."""
         self.model = model
         self.params = params
         self.c = model.c

@@ -1,12 +1,12 @@
-"""Sharded exact top-k embedding index over a TPU mesh.
+"""Sharded exact top-k embedding index over a device mesh.
 
-TPU-native replacement for the reference's brute-force retrieval
+Replacement for the reference's brute-force retrieval
 (notebooks/retrieval.ipynb cells 2-3): there, the full Q×G cosine matrix is
 materialized on CPU with sklearn and each query argsorted over the whole
 gallery.  Here the gallery is sharded across a 1-D device mesh; each device
-computes blockwise similarities on the MXU, reduces to a local top-k, and the
+computes blockwise similarities, reduces to a local top-k, and the
 per-shard candidates are merged with one all-gather — the Q×G matrix never
-exists, so the gallery scales past a single chip's HBM and queries ride ICI.
+exists, so the gallery scales past a single device's memory.
 
 Design:
   * ``similarity ∈ {"cosine", "dot", "poincare"}`` — cosine matches the
@@ -22,8 +22,7 @@ Design:
 from __future__ import annotations
 
 import functools
-import os
-from typing import Literal
+from typing import Literal, NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -31,12 +30,6 @@ import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..ops import poincare
-from ..ops.topk_kernel import (PoincareGallery, bucket_topk_bf16,
-                               bucket_topk_int8, bucket_topk_poincare,
-                               bucket_topk_supported,
-                               prepare_cosine_gallery_bf16,
-                               prepare_poincare_gallery,
-                               quantize_poincare_queries)
 
 Similarity = Literal["cosine", "dot", "poincare"]
 
@@ -61,9 +54,8 @@ def _scores_block(queries: jax.Array, gallery: jax.Array, similarity: Similarity
 
         s(v) = −D(v) = 2·u·(v·w) − |u|²·w − |v|²·w,   w = 1/(1−c|v|²)
 
-    gives EXACTLY the distance ordering while riding the MXU as one matmul
-    plus rank-1 affine terms — no arcosh/rsqrt per (q, g) pair.  Measured
-    3.6× over the pairwise-dist scan at 200k×512 on v5e (see bench).
+    gives EXACTLY the distance ordering as one matmul plus rank-1 affine
+    terms — no arcosh/rsqrt per (q, g) pair.
     ``topk_search`` re-computes true −dist for the k winners afterwards so
     callers still receive distances as values.
     """
@@ -140,9 +132,8 @@ def topk_search(queries: jax.Array, gallery: jax.Array, k: int = 10,
 def quantize_gallery(embeddings: np.ndarray
                      ) -> tuple[np.ndarray, np.ndarray]:
     """Per-row symmetric int8 quantization of L2-NORMALIZED gallery rows →
-    (int8 [N, D], f32 [N] scales).  4× less HBM per vector: a v5e chip holds
-    ~14M 512-d vectors int8 vs ~3.5M f32, and the blockwise score scan reads
-    4× fewer bytes (top-k at gallery scale is HBM-bandwidth-bound)."""
+    (int8 [N, D], f32 [N] scales).  4× less device memory per vector, and
+    the blockwise score scan reads 4× fewer bytes."""
     emb = np.asarray(embeddings, np.float32)
     emb = emb / np.maximum(np.linalg.norm(emb, axis=-1, keepdims=True), 1e-12)
     scale = np.maximum(np.abs(emb).max(axis=-1), 1e-8) / 127.0
@@ -150,82 +141,53 @@ def quantize_gallery(embeddings: np.ndarray
     return q, scale.astype(np.float32)
 
 
-# fused candidate-stage tuning knobs (see ops/topk_kernel.py); env-settable
-# for on-chip A/B sweeps without an edit-reinstall loop
-_FUSED_BUCKETS = int(os.environ.get("PATENT_TPU_FUSED_TOPK_BUCKETS", "1024"))
-_FUSED_ROWS = int(os.environ.get("PATENT_TPU_FUSED_TOPK_ROWS", "2048"))
-
-
-def _on_tpu() -> bool:
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:  # pragma: no cover
-        return False
-
-
-def _topk_scores_int8(queries: jax.Array, gal_i8: jax.Array,
-                      gal_scale: jax.Array, k: int,
-                      block_size: int) -> tuple[jax.Array, jax.Array]:
-    """Candidate-stage cosine top-k over an int8 gallery.
-
-    Dispatches to the fused Pallas score+bucketed-top-2 kernel
-    (ops/topk_kernel.py) — HBM sees only the gallery stream; measured
-    69-88k QPS vs 22.7k for the scan at 1M×512/Q=256 (pool
-    recall@10 1.0, tools/ab_topk_fused.py) — and falls back to the XLA scan path
-    (``_topk_scores_int8_scan``, the correctness oracle) off-TPU or when
-    the pool exceeds the kernel's 2·buckets candidate capacity.
-    ``PATENT_TPU_FUSED_TOPK=0`` forces the scan path everywhere (the A/B +
-    numerics escape hatch); ``=force`` runs the kernel in interpret mode
-    off-TPU (test coverage of the integrated dispatch).
-    """
-    mode = os.environ.get("PATENT_TPU_FUSED_TOPK", "1")
-    if (mode != "0"
-            and bucket_topk_supported(gal_i8.shape[0], k, _FUSED_BUCKETS,
-                                      _FUSED_ROWS)
-            and (_on_tpu() or mode == "force")):
-        return _topk_scores_int8_fused(queries, gal_i8, gal_scale, k,
-                                       interpret=not _on_tpu())
-    return _topk_scores_int8_scan(queries, gal_i8, gal_scale, k, block_size)
-
-
-@functools.partial(jax.jit, static_argnames=("k", "interpret"))
-def _topk_scores_int8_fused(queries: jax.Array, gal_i8: jax.Array,
-                            gal_scale: jax.Array, k: int,
-                            interpret: bool = False
-                            ) -> tuple[jax.Array, jax.Array]:
+def _quantize_queries(queries: jax.Array) -> tuple[jax.Array, jax.Array]:
+    """L2-normalize queries and quantize each row to int8 →
+    (int8 [Q, D], f32 [Q, 1] scale)."""
     qn = queries / jnp.maximum(
         jnp.linalg.norm(queries, axis=-1, keepdims=True), 1e-12)
     q_scale = jnp.maximum(jnp.max(jnp.abs(qn), axis=-1, keepdims=True),
                           1e-8) / 127.0
     q_i8 = jnp.clip(jnp.round(qn / q_scale), -127, 127).astype(jnp.int8)
-    return bucket_topk_int8(q_i8, q_scale, gal_i8, gal_scale, k,
-                            buckets=_FUSED_BUCKETS, rows=_FUSED_ROWS,
-                            interpret=interpret)
+    return q_i8, q_scale
+
+
+def _block_candidates(s: jax.Array, k: int) -> tuple[jax.Array, jax.Array]:
+    """Per-block candidate selection of the pool scans: exact ``top_k``."""
+    return jax.lax.top_k(s, k)
+
+
+def _merge_pool(carry, s: jax.Array, col: jax.Array, pool: int):
+    """Fold one block's [Q, B] scores (global column ids ``col``) into the
+    running [Q, pool] candidates."""
+    best_vals, best_idx = carry
+    bvals, bpos = _block_candidates(s, pool)
+    bidx = jnp.take_along_axis(col, bpos, axis=1)
+    cat_vals = jnp.concatenate([best_vals, bvals], axis=1)   # [Q, 2·pool]
+    cat_idx = jnp.concatenate([best_idx, bidx], axis=1)
+    vals, pos = jax.lax.top_k(cat_vals, pool)
+    return vals, jnp.take_along_axis(cat_idx, pos, axis=1)
+
+
+def _pool_init(n_queries: int, pool: int):
+    return (jnp.full((n_queries, pool), -jnp.inf, jnp.float32),
+            jnp.zeros((n_queries, pool), jnp.int32))
 
 
 @functools.partial(jax.jit, static_argnames=("k", "block_size"))
-def _topk_scores_int8_scan(queries: jax.Array, gal_i8: jax.Array,
-                           gal_scale: jax.Array, k: int,
-                           block_size: int) -> tuple[jax.Array, jax.Array]:
-    """XLA scan candidate stage (CPU fallback + oracle for the fused path).
-
-    Queries are normalized + per-row quantized on the fly; scores ride the
-    int8 MXU; per-block reduction uses ``jax.lax.approx_max_k`` — the
-    TPU-native tiled max-k (exact VALUES, approximate membership with
-    recall_target=0.99 per block) — which is ~20× faster than
-    ``lax.top_k`` over wide blocks (measured 290k vs 13k QPS @200k×512,
-    k=80).  Int8 score error (~1%) and the per-block recall target are both
-    absorbed by the caller's over-fetched pool + exact f32 re-rank
-    (topk_search_quantized).
+def _topk_scores_int8(queries: jax.Array, gal_i8: jax.Array,
+                      gal_scale: jax.Array, k: int,
+                      block_size: int) -> tuple[jax.Array, jax.Array]:
+    """Candidate-stage cosine top-k over an int8 gallery, as a blockwise
+    scan: queries are normalized + per-row quantized on the fly, scores are
+    int8 × int8 → int32 products, and each block's candidates are folded
+    into a running [Q, k] pool.  Int8 score error (~1%) is absorbed by the
+    caller's over-fetched pool + exact f32 re-rank (topk_search_quantized).
     """
-    qn = queries / jnp.maximum(
-        jnp.linalg.norm(queries, axis=-1, keepdims=True), 1e-12)
-    q_scale = jnp.maximum(jnp.max(jnp.abs(qn), axis=-1, keepdims=True),
-                          1e-8) / 127.0
-    q_i8 = jnp.clip(jnp.round(qn / q_scale), -127, 127).astype(jnp.int8)
+    q_i8, q_scale = _quantize_queries(queries)
     n_gallery = gal_i8.shape[0]
     n_queries = queries.shape[0]
-    block_size = max(block_size, k)      # approx_max_k needs k < block cols
+    block_size = max(block_size, k)
     n_blocks = -(-n_gallery // block_size)
     padded = n_blocks * block_size
     gal = jnp.pad(gal_i8, ((0, padded - n_gallery), (0, 0)))
@@ -234,7 +196,6 @@ def _topk_scores_int8_scan(queries: jax.Array, gal_i8: jax.Array,
     scales = scales.reshape(n_blocks, block_size)
 
     def body(carry, inp):
-        best_vals, best_idx = carry
         block, bscale, block_i = inp
         acc = jax.lax.dot_general(
             q_i8, block, dimension_numbers=(((1,), (1,)), ((), ())),
@@ -243,17 +204,9 @@ def _topk_scores_int8_scan(queries: jax.Array, gal_i8: jax.Array,
         col = jax.lax.broadcasted_iota(jnp.int32, s.shape, 1) \
             + block_i * block_size
         s = jnp.where(col < n_gallery, s, -jnp.inf)
-        bvals, bpos = jax.lax.approx_max_k(s, k, recall_target=0.99)
-        bidx = jnp.take_along_axis(col, bpos, axis=1)        # [Q, k]
-        cat_vals = jnp.concatenate([best_vals, bvals], axis=1)   # [Q, 2k]
-        cat_idx = jnp.concatenate([best_idx, bidx], axis=1)
-        vals, pos = jax.lax.top_k(cat_vals, k)               # cheap: 2k wide
-        idx = jnp.take_along_axis(cat_idx, pos, axis=1)
-        return (vals, idx), None
+        return _merge_pool(carry, s, col, k), None
 
-    init = (jnp.full((n_queries, k), -jnp.inf, jnp.float32),
-            jnp.zeros((n_queries, k), jnp.int32))
-    (vals, idx), _ = jax.lax.scan(body, init,
+    (vals, idx), _ = jax.lax.scan(body, _pool_init(n_queries, k),
                                   (gal, scales, jnp.arange(n_blocks)))
     return vals, idx
 
@@ -265,9 +218,9 @@ def topk_search_quantized(queries, gal_i8: jax.Array, gal_scale: jax.Array,
                           ) -> tuple[np.ndarray, np.ndarray]:
     """Exact cosine top-k with int8 candidate generation + f32 re-rank.
 
-    Device stage over-fetches ``rerank_mult·k`` int8-scored candidates; the
-    host re-scores just those rows (Q·mult·k dots) in f32 and returns the
-    exact-ordering top-k.  The true top-k survives as long as no true
+    Device stage over-fetches ``rerank_mult·k`` int8-scored candidates;
+    just those rows (Q·mult·k dots) are re-scored in f32 (``_cosine_rerank``,
+    the same math as every cosine path) for the exact-ordering top-k.  The true top-k survives as long as no true
     member's int8 score falls below the pool boundary — pool depth 8k gives
     headroom ≫ the ~1% int8 score noise for clustered (real-embedding)
     galleries; measured parity is pinned in tests/test_index.py.
@@ -288,36 +241,27 @@ def topk_search_quantized(queries, gal_i8: jax.Array, gal_scale: jax.Array,
         idx = np.argsort(-exact, axis=1, kind="stable")[:, :k]
         return np.take_along_axis(exact, idx, axis=1), idx
     _pv, pidx = _topk_scores_int8(q, gal_i8, gal_scale, pool, block_size)
-    pidx = np.asarray(pidx)                                  # [Q, pool]
-    qn = np.asarray(q, np.float32)
-    qn = qn / np.maximum(np.linalg.norm(qn, axis=-1, keepdims=True), 1e-12)
-    gn = gallery_f32[pidx]                                   # [Q, pool, D]
-    gn = gn / np.maximum(np.linalg.norm(gn, axis=-1, keepdims=True), 1e-12)
-    exact = np.einsum("qd,qpd->qp", qn, gn)
-    order = np.argsort(-exact, axis=1)[:, :k]
-    vals = np.take_along_axis(exact, order, axis=1)
-    idx = np.take_along_axis(pidx, order, axis=1)
-    return vals, idx
+    return _cosine_rerank(pidx, q, gallery_f32, k)
 
 
 @functools.partial(jax.jit, static_argnames=("k",))
-def _cosine_rerank_device(pidx: jax.Array, queries: jax.Array,
-                          gallery: jax.Array, k: int
-                          ) -> tuple[jax.Array, jax.Array]:
-    """Exact f32 cosine re-rank of a candidate pool — the SAME normalization
-    and HIGHEST-precision dot math as ``_scores_block('cosine')``, so the
-    winners' values/ordering are identical to the scan oracle's.
+def _cosine_rerank_rows(pidx: jax.Array, queries: jax.Array,
+                        cand: jax.Array, k: int
+                        ) -> tuple[jax.Array, jax.Array]:
+    """Exact f32 cosine re-rank of a candidate pool (``cand`` [Q, P, D]
+    holds gallery rows ``pidx`` [Q, P]) — the SAME normalization and
+    HIGHEST-precision dot math as ``_scores_block('cosine')``.
 
     Ties (exactly equal cosines, e.g. duplicate gallery rows) must ALSO
-    break like the oracle — ``lax.top_k`` over the full gallery favors the
-    LOWER gallery index, while the candidate pool arrives in bf16-score/
-    bucket order — so the pool is pre-sorted by gallery index: ``top_k``
-    ties then resolve to the lower pool position = lower gallery index."""
+    break like the scan oracle — ``lax.top_k`` over the full gallery
+    favors the LOWER gallery index, while the pool arrives in score order
+    — so the pool is pre-sorted by gallery index: ``top_k`` ties then
+    resolve to the lower pool position = lower gallery index."""
     order0 = jnp.argsort(pidx, axis=1)
     pidx = jnp.take_along_axis(pidx, order0, axis=1)
+    cand = jnp.take_along_axis(cand, order0[:, :, None], axis=1)
     qn = queries / jnp.maximum(
         jnp.linalg.norm(queries, axis=-1, keepdims=True), 1e-12)
-    cand = gallery[pidx]                                      # [Q, P, D]
     cand = cand / jnp.maximum(
         jnp.linalg.norm(cand, axis=-1, keepdims=True), 1e-12)
     exact = jnp.einsum("qd,qpd->qp", qn, cand,
@@ -326,37 +270,38 @@ def _cosine_rerank_device(pidx: jax.Array, queries: jax.Array,
     return vals, jnp.take_along_axis(pidx, pos, axis=1)
 
 
-def _cosine_rerank_host(pidx, queries, gallery_f32, k: int
-                        ) -> tuple[np.ndarray, np.ndarray]:
-    """Exact f32 host re-rank of a candidate pool with the scan oracle's
-    tie-break (pool pre-sorted by gallery index, stable descending score
-    sort) — ONE copy of the tie-break-sensitive logic, shared by the
-    single-device and sharded cosine-fast host paths."""
-    pidx = np.sort(np.asarray(pidx), axis=1)
-    qn = np.asarray(queries, np.float32)
-    qn = qn / np.maximum(np.linalg.norm(qn, axis=-1, keepdims=True), 1e-12)
-    gn = np.asarray(gallery_f32)[pidx]
-    gn = gn / np.maximum(np.linalg.norm(gn, axis=-1, keepdims=True), 1e-12)
-    exact = np.einsum("qd,qpd->qp", qn, gn)
-    order = np.argsort(-exact, axis=1, kind="stable")[:, :k]
-    return (np.take_along_axis(exact, order, axis=1),
-            np.take_along_axis(pidx, order, axis=1))
+def _cosine_rerank(pidx, queries, gallery_f32, k: int
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """Re-rank a candidate pool against the f32 gallery, on the device
+    whether the gallery lives there (``jax.Array``) or on the host (only
+    the [Q, P, D] candidate rows move) — ONE copy of the tie-break-sensitive
+    math for every cosine candidate path, so they all order alike."""
+    if isinstance(gallery_f32, jax.Array):
+        cand = gallery_f32[jnp.asarray(pidx)]
+    else:
+        cand = np.asarray(gallery_f32, np.float32)[np.asarray(pidx)]
+    vals, idx = _cosine_rerank_rows(jnp.asarray(pidx),
+                                    jnp.asarray(queries, jnp.float32),
+                                    jnp.asarray(cand), k)
+    return np.asarray(vals), np.asarray(idx)
 
 
-def fused_cosine_eligible(n: int, k: int,
-                          rerank_mult: int = DEFAULT_RERANK_MULT) -> bool:
-    """True iff ``topk_search_cosine_fast`` would take the fused bf16
-    candidate path (not the scan fallback) for an n-row gallery at this k.
-    Exposed so callers (``EmbeddingIndex.search``) can gate the +50%-HBM
-    bf16 gallery copy on the SAME condition — building it and then scanning
-    anyway (CPU deployment, ``PATENT_TPU_FUSED_TOPK=0``, unsupported shape)
-    would waste a gallery-sized allocation."""
-    mode = os.environ.get("PATENT_TPU_FUSED_TOPK", "1")
-    pool = min(max(k * rerank_mult, k), n)
-    return (mode != "0"
-            and pool < n
-            and bucket_topk_supported(n, pool, _FUSED_BUCKETS, _FUSED_ROWS)
-            and (_on_tpu() or mode == "force"))
+def prepare_cosine_gallery_bf16(embeddings) -> tuple[jax.Array, jax.Array]:
+    """One-time index-build transform: gallery [N, D] → (L2-normalized
+    bf16 rows [N, D], valid-row mask [N] f32 — all ones here; zero padding
+    added by the sharded wrapper doubles as the invalid-row mask)."""
+    g = jnp.asarray(embeddings, jnp.float32)
+    gn = g / jnp.maximum(jnp.linalg.norm(g, axis=-1, keepdims=True), 1e-12)
+    return gn.astype(jnp.bfloat16), jnp.ones((g.shape[0],), jnp.float32)
+
+
+def candidate_pool_narrows(n: int, k: int,
+                           rerank_mult: int = DEFAULT_RERANK_MULT) -> bool:
+    """True iff the ``rerank_mult·k`` candidate pool is smaller than the
+    gallery, i.e. a candidate stage + exact re-rank does less work than
+    the exact scan.  ``EmbeddingIndex.search`` builds the bf16 gallery
+    copy only then."""
+    return min(max(k * rerank_mult, k), n) < n
 
 
 def topk_search_cosine_fast(queries, gal_bf16: jax.Array, valid: jax.Array,
@@ -364,45 +309,28 @@ def topk_search_cosine_fast(queries, gal_bf16: jax.Array, valid: jax.Array,
                             block_size: int = 8192,
                             rerank_mult: int = DEFAULT_RERANK_MULT
                             ) -> tuple[np.ndarray, np.ndarray]:
-    """Exact cosine top-k for the NON-quantized index: fused bf16 candidate
-    stage + exact f32 device re-rank.
+    """Exact cosine top-k for the NON-quantized index: bf16 candidate
+    stage + exact f32 re-rank.
 
-    The default serving path (``--quantize`` off) and the bench's
-    exact-cosine section used to run the XLA scan at ~8.4k QPS @1M×512;
-    here the candidate stage streams the bf16 gallery (HALF the f32 bytes,
-    no score-tile HBM round-trips) through the bucketed-top-2 kernel, and
-    the ``rerank_mult·k`` pool is re-scored against the resident f32
-    gallery with ``topk_search``'s exact math — final ordering is
-    IDENTICAL to the scan (pinned in tests/test_index.py; asserted every
-    bench run), including on tied scores: the pool is re-ranked with the
-    oracle's lower-gallery-index tie-break.  The one reachable divergence
-    is MORE tied duplicates than the candidate stage's per-bucket capacity
-    (bucket = gallery row mod ``_FUSED_BUCKETS``; top-2 kept per bucket,
-    top-1 per 2048-row step when n > 2·buckets): the excess copies are
-    evicted and the tail of the top-k back-fills with the next-best rows,
-    so tail indices AND scores can then differ from the oracle (verified
-    on-chip: 8 copies at stride 2048 keep 2).  Exact-duplicate gallery
-    rows beyond 2 per 1024-stride class are a data-dedup problem, not a
-    serving one — the scan oracle remains available for such galleries.
-    Off-TPU (or ``PATENT_TPU_FUSED_TOPK=0``) this falls back to the scan
-    oracle itself; ``=force`` runs the kernel in interpret mode (test
-    coverage).  Replaces the serving hot loop of
-    /root/reference/notebooks/retrieval.ipynb cell 3 (full Q×G cosine on
+    The candidate stage streams the bf16 gallery (HALF the f32 bytes, bf16
+    products with f32 accumulation) through a blockwise scan that keeps the
+    best ``rerank_mult·k`` rows per query; the pool is then re-scored
+    against the f32 gallery with ``topk_search``'s exact math, so the final
+    ordering is IDENTICAL to the scan's (pinned in tests/test_index.py),
+    including on tied scores: the pool is re-ranked with the oracle's
+    lower-gallery-index tie-break.  When the pool would not narrow the
+    gallery this is the exact scan itself.  Replaces the serving hot loop
+    of /root/reference/notebooks/retrieval.ipynb cell 3 (full Q×G cosine on
     CPU + argsort) at index scale."""
     q = jnp.asarray(queries, jnp.float32)
     n = gal_bf16.shape[0]
     pool = min(max(k * rerank_mult, k), n)
-    if not fused_cosine_eligible(n, k, rerank_mult):
+    if not candidate_pool_narrows(n, k, rerank_mult):
         vals, idx = topk_search(q, jnp.asarray(gallery_f32), k=k,
                                 similarity="cosine", block_size=block_size)
         return np.asarray(vals), np.asarray(idx)
-    _pv, pidx = bucket_topk_bf16(q, gal_bf16, valid, pool,
-                                 buckets=_FUSED_BUCKETS, rows=_FUSED_ROWS,
-                                 interpret=not _on_tpu())
-    if isinstance(gallery_f32, jax.Array):
-        vals, idx = _cosine_rerank_device(pidx, q, gallery_f32, k)
-        return np.asarray(vals), np.asarray(idx)
-    return _cosine_rerank_host(pidx, q, gallery_f32, k)
+    _pv, pidx = _cosine_pool_scan_bf16(q, gal_bf16, valid, pool, block_size)
+    return _cosine_rerank(pidx, q, gallery_f32, k)
 
 
 @functools.partial(jax.jit, static_argnames=("pool", "block_size"))
@@ -410,19 +338,17 @@ def _cosine_pool_scan_bf16(queries: jax.Array, gal_bf16: jax.Array,
                            valid: jax.Array, pool: int,
                            block_size: int = 8192
                            ) -> tuple[jax.Array, jax.Array]:
-    """XLA scan twin of the fused bf16 cosine candidate kernel (CPU
-    fallback + correctness oracle): same bf16 operands (pre-normalized
-    gallery rows, f32-normalized queries cast to bf16, f32 MXU
-    accumulate), ``approx_max_k`` per block like the int8 scan stage —
-    bf16-cosine score scale either way, so per-shard pools merge
-    consistently across a mesh."""
+    """bf16 cosine candidate stage: pre-normalized bf16 gallery rows,
+    f32-normalized queries cast to bf16, f32 accumulation; bf16-cosine
+    score scale on every shard, so per-shard pools merge consistently
+    across a mesh."""
     qf = jnp.asarray(queries, jnp.float32)
     qn = qf / jnp.maximum(jnp.linalg.norm(qf, axis=-1, keepdims=True),
                           1e-12)
     q16 = qn.astype(jnp.bfloat16)
     n = gal_bf16.shape[0]
     n_queries = q16.shape[0]
-    block_size = max(block_size, pool)   # approx_max_k needs k < block cols
+    block_size = max(block_size, pool)
     n_blocks = -(-n // block_size)
     padded = n_blocks * block_size
     gal = jnp.pad(gal_bf16, ((0, padded - n), (0, 0)))
@@ -430,44 +356,18 @@ def _cosine_pool_scan_bf16(queries: jax.Array, gal_bf16: jax.Array,
     vmask = jnp.pad(valid, (0, padded - n)).reshape(n_blocks, block_size)
 
     def body(carry, inp):
-        best_vals, best_idx = carry
         block, v_, block_i = inp
         s = jax.lax.dot_general(
             q16, block, dimension_numbers=(((1,), (1,)), ((), ())),
             preferred_element_type=jnp.float32)              # [Q, B]
         s = jnp.where(v_[None, :] > 0.0, s, -jnp.inf)
-        bvals, bpos = jax.lax.approx_max_k(s, pool, recall_target=0.99)
         col = jax.lax.broadcasted_iota(jnp.int32, s.shape, 1) \
             + block_i * block_size
-        bidx = jnp.take_along_axis(col, bpos, axis=1)
-        cat_vals = jnp.concatenate([best_vals, bvals], axis=1)
-        cat_idx = jnp.concatenate([best_idx, bidx], axis=1)
-        vals, pos = jax.lax.top_k(cat_vals, pool)
-        return (vals, jnp.take_along_axis(cat_idx, pos, axis=1)), None
+        return _merge_pool(carry, s, col, pool), None
 
-    init = (jnp.full((n_queries, pool), -jnp.inf, jnp.float32),
-            jnp.zeros((n_queries, pool), jnp.int32))
-    (vals, idx), _ = jax.lax.scan(body, init,
+    (vals, idx), _ = jax.lax.scan(body, _pool_init(n_queries, pool),
                                   (gal, vmask, jnp.arange(n_blocks)))
     return vals, idx
-
-
-def _cosine_fast_pool(queries: jax.Array, gal_bf16: jax.Array,
-                      valid: jax.Array, pool: int,
-                      block_size: int) -> tuple[jax.Array, jax.Array]:
-    """bf16 cosine candidate-stage dispatch: fused kernel on TPU (or
-    ``=force`` interpret), XLA bf16 scan everywhere else — bf16-cosine
-    values either way, so per-shard pools merge consistently."""
-    mode = os.environ.get("PATENT_TPU_FUSED_TOPK", "1")
-    if (mode != "0"
-            and bucket_topk_supported(gal_bf16.shape[0], pool,
-                                      _FUSED_BUCKETS, _FUSED_ROWS)
-            and (_on_tpu() or mode == "force")):
-        return bucket_topk_bf16(queries, gal_bf16, valid, pool,
-                                buckets=_FUSED_BUCKETS, rows=_FUSED_ROWS,
-                                interpret=not _on_tpu())
-    return _cosine_pool_scan_bf16(queries, gal_bf16, valid, pool,
-                                  block_size)
 
 
 def sharded_topk_search_cosine_fast(mesh: Mesh, queries,
@@ -477,28 +377,20 @@ def sharded_topk_search_cosine_fast(mesh: Mesh, queries,
                                     rerank_mult: int = DEFAULT_RERANK_MULT,
                                     axis: str = "data"
                                     ) -> tuple[np.ndarray, np.ndarray]:
-    """Fused bf16 exact-cosine search with the gallery row-sharded over
-    ``mesh[axis]`` — the round-4 single-chip serving win (fused candidate
-    kernel + exact re-rank, ~5.5× the scan's QPS at 1M×512) composed with
-    the mesh path, so ``--quantize``-off serving no longer drops to the
-    blockwise scan when a mesh is attached.
+    """bf16 candidate stage + exact re-rank with the gallery row-sharded
+    over ``mesh[axis]`` — ``topk_search_cosine_fast`` composed with the
+    mesh path.
 
-    Each shard streams its bf16 gallery rows through the bucketed-top-2
-    kernel (fused on TPU, XLA scan twin elsewhere — bf16-cosine values are
+    Each shard scans its bf16 gallery rows (bf16-cosine values are
     cross-shard comparable: rows are pre-normalized, queries normalized
     identically per shard); one all_gather merges per-shard pools; the
     final ordering comes from the exact f32 re-rank (device if
     ``gallery_f32`` is a ``jax.Array``, host otherwise) with the scan
     oracle's lower-gallery-index tie-break.  Ordering matches the oracle
-    under the SAME exactness contract (and caveat) as the single-device
-    ``topk_search_cosine_fast``: the true top-k must survive the
-    per-shard candidate stage — bucket-capacity losses on >2 exact
-    duplicates per bucket class (see that docstring), and, on the scan
-    twin, ``approx_max_k``'s per-block 0.99 recall target (absorbed by
-    the 8×-over-fetched pool; exact on CPU, where approx_max_k lowers to
-    full sort), are the reachable divergences.  Parity is pinned in
-    tests/test_index.py and the multichip dryrun.  Replaces
-    /root/reference/notebooks/retrieval.ipynb cell 3 at pod scale."""
+    as long as the true top-k survives the per-shard candidate stage.
+    Parity is pinned in tests/test_index.py.  Replaces
+    /root/reference/notebooks/retrieval.ipynb cell 3 at multi-device
+    scale."""
     from jax import shard_map
 
     q = jnp.asarray(queries, jnp.float32)
@@ -512,8 +404,8 @@ def sharded_topk_search_cosine_fast(mesh: Mesh, queries,
 
     def shard_fn(qs, g, v):
         shard_i = jax.lax.axis_index(axis)
-        vals, idx = _cosine_fast_pool(qs, g, v, min(pool, per_shard),
-                                      block_size)
+        vals, idx = _cosine_pool_scan_bf16(qs, g, v, min(pool, per_shard),
+                                           block_size)
         idx = idx + shard_i * per_shard
         vals = jnp.where(idx < n, vals, -jnp.inf)
         all_vals = jax.lax.all_gather(vals, axis, axis=1, tiled=True)
@@ -525,10 +417,7 @@ def sharded_topk_search_cosine_fast(mesh: Mesh, queries,
                    in_specs=(P(), P(axis), P(axis)),
                    out_specs=(P(), P()), check_vma=False)
     _pv, pidx = fn(q, gal_p, valid_p)
-    if isinstance(gallery_f32, jax.Array):
-        vals, idx = _cosine_rerank_device(pidx, q, gallery_f32, k)
-        return np.asarray(vals), np.asarray(idx)
-    return _cosine_rerank_host(pidx, q, gallery_f32, k)
+    return _cosine_rerank(pidx, q, gallery_f32, k)
 
 
 def _poincare_dist_np(u: np.ndarray, v: np.ndarray, c: float) -> np.ndarray:
@@ -544,17 +433,60 @@ def _poincare_dist_np(u: np.ndarray, v: np.ndarray, c: float) -> np.ndarray:
     return np.arccosh(np.maximum(arg, 1.0)) / np.sqrt(c)
 
 
+class PoincareGallery(NamedTuple):
+    """Prepared int8 candidate-stage operands for one ball gallery (see
+    ``prepare_poincare_gallery``).  A NamedTuple so it flows through jit
+    and shard_map as a pytree."""
+    gal_i8: jax.Array      # [N, D] int8, row-scaled ball points
+    gw2: jax.Array         # [N] f32, 2 · row_scale · w
+    w: jax.Array           # [N] f32, 1/(1−c·|v|²); 0 marks padded rows
+    b: jax.Array           # [N] f32, |v|²·w
+
+
+def prepare_poincare_gallery(gallery, c: float) -> PoincareGallery:
+    """One-time index-build transform: ball points [N, D] →
+    ``PoincareGallery`` (int8 rows + f32 affine terms), where row i is
+    quantized symmetrically to its own max (scaleᵢ = max|vᵢ|/127) and
+
+        gw2ᵢ = 2 · scaleᵢ · wᵢ,   wᵢ = 1/(1−c·|vᵢ|²),   bᵢ = |vᵢ|²·wᵢ,
+
+    so the surrogate score of ``_scores_block`` becomes
+    ``q_scale·(q_i8·v_i8)·gw2 − |u|²·w − b``.  All affine terms come from
+    the ORIGINAL f32 rows; int8 error enters only through the dot product
+    (≤0.4% of the row max per element — the mandatory exact re-rank stage
+    absorbs the ordering noise).  The int8 gallery is a QUARTER of the f32
+    scan path's bytes."""
+    g = jnp.asarray(gallery, jnp.float32)
+    g_sq = jnp.sum(jnp.square(g), axis=-1)
+    w = 1.0 / jnp.maximum(1.0 - c * g_sq, 1e-12)
+    scale = jnp.max(jnp.abs(g), axis=-1) / 127.0
+    safe = jnp.maximum(scale, 1e-30)
+    gal_i8 = jnp.round(g / safe[:, None]).astype(jnp.int8)
+    return PoincareGallery(gal_i8, 2.0 * scale * w, w, g_sq * w)
+
+
+def quantize_poincare_queries(queries: jax.Array
+                              ) -> tuple[jax.Array, jax.Array, jax.Array]:
+    """Per-row symmetric int8 quantization of query ball points →
+    (q_i8 [Q, D], q_scale [Q, 1] f32, q_sq [Q, 1] f32).  q_sq comes from
+    the ORIGINAL f32 rows (it feeds the affine term, not the dot)."""
+    qf = jnp.asarray(queries, jnp.float32)
+    q_sq = jnp.sum(jnp.square(qf), axis=-1, keepdims=True)
+    qscale = jnp.max(jnp.abs(qf), axis=-1, keepdims=True) / 127.0
+    q_i8 = jnp.round(qf / jnp.maximum(qscale, 1e-30)).astype(jnp.int8)
+    return q_i8, qscale, q_sq
+
+
 @functools.partial(jax.jit, static_argnames=("pool", "block_size"))
-def _poincare_pool_scan(queries: jax.Array, gal: PoincareGallery, pool: int,
-                        block_size: int = 8192
-                        ) -> tuple[jax.Array, jax.Array]:
-    """XLA scan twin of the fused Poincaré candidate kernel (CPU fallback +
-    correctness oracle): same int8 operands, same dequant-folded surrogate
-    math, ``approx_max_k`` per block like the int8 cosine scan stage."""
+def _poincare_pool(queries: jax.Array, gal: PoincareGallery, pool: int,
+                   block_size: int = 8192) -> tuple[jax.Array, jax.Array]:
+    """Poincaré candidate stage: int8 operands, dequant folded into the
+    surrogate's affine terms, blockwise scan — surrogate-scale values on
+    every shard, so per-shard pools merge consistently."""
     q_i8, qs, q_sq = quantize_poincare_queries(queries)
     n = gal.gal_i8.shape[0]
     n_queries = q_i8.shape[0]
-    block_size = max(block_size, pool)   # approx_max_k needs k < block cols
+    block_size = max(block_size, pool)
     n_blocks = -(-n // block_size)
     padded = n_blocks * block_size
     gal_b = jnp.pad(gal.gal_i8, ((0, padded - n), (0, 0)))
@@ -564,7 +496,6 @@ def _poincare_pool_scan(queries: jax.Array, gal: PoincareGallery, pool: int,
     bs = jnp.pad(gal.b, (0, padded - n)).reshape(n_blocks, block_size)
 
     def body(carry, inp):
-        best_vals, best_idx = carry
         block, gw2_, w_, b_, block_i = inp
         acc = jax.lax.dot_general(
             q_i8, block, dimension_numbers=(((1,), (1,)), ((), ())),
@@ -572,38 +503,14 @@ def _poincare_pool_scan(queries: jax.Array, gal: PoincareGallery, pool: int,
         s = (qs * (acc.astype(jnp.float32) * gw2_[None, :])
              - q_sq * w_[None, :] - b_[None, :])
         s = jnp.where(w_[None, :] > 0.0, s, -jnp.inf)
-        bvals, bpos = jax.lax.approx_max_k(s, pool, recall_target=0.99)
         col = jax.lax.broadcasted_iota(jnp.int32, s.shape, 1) \
             + block_i * block_size
-        bidx = jnp.take_along_axis(col, bpos, axis=1)
-        cat_vals = jnp.concatenate([best_vals, bvals], axis=1)
-        cat_idx = jnp.concatenate([best_idx, bidx], axis=1)
-        vals, pos = jax.lax.top_k(cat_vals, pool)
-        return (vals, jnp.take_along_axis(cat_idx, pos, axis=1)), None
+        return _merge_pool(carry, s, col, pool), None
 
-    init = (jnp.full((n_queries, pool), -jnp.inf, jnp.float32),
-            jnp.zeros((n_queries, pool), jnp.int32))
-    (vals, idx), _ = jax.lax.scan(body, init,
+    (vals, idx), _ = jax.lax.scan(body, _pool_init(n_queries, pool),
                                   (gal_b, gw2s, ws, bs,
                                    jnp.arange(n_blocks)))
     return vals, idx
-
-
-def _poincare_pool(queries: jax.Array, gal: PoincareGallery, pool: int,
-                   block_size: int) -> tuple[jax.Array, jax.Array]:
-    """Candidate-stage dispatch: fused kernel on TPU (or ``=force``
-    interpret), XLA scan everywhere else — surrogate-scale values either
-    way, so per-shard pools merge consistently."""
-    mode = os.environ.get("PATENT_TPU_FUSED_TOPK", "1")
-    if (mode != "0"
-            and bucket_topk_supported(gal.gal_i8.shape[0], pool,
-                                      _FUSED_BUCKETS, _FUSED_ROWS)
-            and (_on_tpu() or mode == "force")):
-        return bucket_topk_poincare(queries, gal, pool,
-                                    buckets=_FUSED_BUCKETS,
-                                    rows=_FUSED_ROWS,
-                                    interpret=not _on_tpu())
-    return _poincare_pool_scan(queries, gal, pool, block_size)
 
 
 @functools.partial(jax.jit, static_argnames=("k", "c"))
@@ -616,13 +523,8 @@ def _poincare_rerank_device(pidx: jax.Array, queries: jax.Array,
     return vals, jnp.take_along_axis(pidx, pos, axis=1)
 
 
-# Poincaré candidate-stage pool depth.  Measured (tools/ab_topk_poincare.py,
-# 1M×512 random balls, radii to 0.95/√c at c=2 — harsher than trained
-# galleries): recall@10 vs exact = 0.99961 at BOTH mult=8 and mult=16, i.e.
-# the residual misses are bf16-score/bucket losses in the candidate stage,
-# not pool-boundary misses — while mult=16 halves QPS (wider final top_k +
-# 2× re-rank gather).  mult=8 is therefore the right default; on trained
-# embeddings agreement is exact (tests/test_hyperbolic_engine.py).
+# Poincaré candidate-stage pool depth; on trained embeddings agreement with
+# the exact scan is exact (tests/test_hyperbolic_engine.py).
 POINCARE_RERANK_MULT = DEFAULT_RERANK_MULT
 
 
@@ -631,24 +533,20 @@ def topk_search_poincare_fast(queries, gal: PoincareGallery, gallery_f32,
                               block_size: int = 8192,
                               rerank_mult: int = POINCARE_RERANK_MULT
                               ) -> tuple[np.ndarray, np.ndarray]:
-    """Poincaré top-k: fused int8 candidate stage + EXACT distance re-rank.
+    """Poincaré top-k: int8 candidate stage + EXACT distance re-rank.
 
-    ``gal`` comes from ``ops.topk_kernel.prepare_poincare_gallery``;
+    ``gal`` comes from ``prepare_poincare_gallery``;
     ``gallery_f32`` is the full-precision gallery used only for the
     ``rerank_mult·k``-row re-rank — pass a device ``jax.Array`` to re-rank
     on-chip (serving: the gallery is resident anyway) or a host ``ndarray``
     to re-rank in f64 on host (the memory-lean index: device holds only the
     int8 copy — a QUARTER of the f32 bytes).  Values returned are −distance
-    (the ``topk_search`` poincaré convention).  Off-TPU (or with
-    ``PATENT_TPU_FUSED_TOPK=0``) the candidate stage runs as an XLA scan
-    over the same int8 operands (``_poincare_pool_scan``) — same rerank,
-    scan speed; ``=force`` runs the kernel in interpret mode (test
-    coverage).
+    (the ``topk_search`` poincaré convention).
 
     Unlike the scan surrogate path, the re-rank here uses the
     cancellation-free direct distance on the pool, so near-boundary
-    orderings are MORE accurate than ``topk_search``'s surrogate ordering
-    (see ops/topk_kernel.py Poincaré note)."""
+    orderings are MORE accurate than ``topk_search``'s surrogate
+    ordering."""
     q = jnp.asarray(queries, jnp.float32)
     n = gal.gal_i8.shape[0]
     pool = min(max(k * rerank_mult, k), n)
@@ -676,23 +574,26 @@ def sharded_topk_search_quantized(mesh: Mesh, queries,
                                   gallery_f32: np.ndarray, k: int = 10,
                                   block_size: int = 8192,
                                   rerank_mult: int = DEFAULT_RERANK_MULT,
-                                  axis: str = "data"
+                                  axis: str = "data",
+                                  n_valid: int | None = None
                                   ) -> tuple[np.ndarray, np.ndarray]:
     """Quantized candidate search with the int8 gallery row-sharded over
-    ``mesh[axis]`` (4× the vectors per chip at pod scale), f32 re-rank on
-    host.  Each shard runs the int8+approx_max_k pool pass over its rows;
+    ``mesh[axis]`` (4× the vectors per device), f32 re-rank on host.  Each
+    shard runs the int8 pool pass over its rows;
     one all_gather merges per-shard pools; the final exact ordering comes
-    from the host re-rank, exactly as in ``topk_search_quantized``."""
+    from the host re-rank, exactly as in ``topk_search_quantized``.
+    ``n_valid``: real rows of a gallery passed pre-padded (see
+    ``shard_rows``); rows from there on are never returned."""
     from jax import shard_map
 
     q = jnp.asarray(queries)
-    n = gal_i8.shape[0]
+    n = gal_i8.shape[0] if n_valid is None else n_valid
     pool = min(max(k * rerank_mult, k), n)
     n_shards = mesh.shape[axis]
-    per_shard = -(-n // n_shards)
+    per_shard = -(-gal_i8.shape[0] // n_shards)
     padded = per_shard * n_shards
-    gal_p = jnp.pad(gal_i8, ((0, padded - n), (0, 0)))
-    scale_p = jnp.pad(gal_scale, (0, padded - n))
+    gal_p = jnp.pad(gal_i8, ((0, padded - gal_i8.shape[0]), (0, 0)))
+    scale_p = jnp.pad(gal_scale, (0, padded - gal_i8.shape[0]))
 
     def shard_fn(qs, g, sc):
         shard_i = jax.lax.axis_index(axis)
@@ -709,15 +610,7 @@ def sharded_topk_search_quantized(mesh: Mesh, queries,
                    in_specs=(P(), P(axis), P(axis)),
                    out_specs=(P(), P()), check_vma=False)
     _pv, pidx = fn(q, gal_p, scale_p)
-    pidx = np.asarray(pidx)
-    qn = np.asarray(q, np.float32)
-    qn = qn / np.maximum(np.linalg.norm(qn, axis=-1, keepdims=True), 1e-12)
-    gn = gallery_f32[pidx]
-    gn = gn / np.maximum(np.linalg.norm(gn, axis=-1, keepdims=True), 1e-12)
-    exact = np.einsum("qd,qpd->qp", qn, gn)
-    order = np.argsort(-exact, axis=1)[:, :k]
-    return (np.take_along_axis(exact, order, axis=1),
-            np.take_along_axis(pidx, order, axis=1))
+    return _cosine_rerank(pidx, q, gallery_f32, k)
 
 
 def sharded_topk_search_poincare_fast(mesh: Mesh, queries,
@@ -726,29 +619,31 @@ def sharded_topk_search_poincare_fast(mesh: Mesh, queries,
                                       k: int = 10, c: float = 1.0,
                                       block_size: int = 8192,
                                       rerank_mult: int = POINCARE_RERANK_MULT,
-                                      axis: str = "data"
+                                      axis: str = "data",
+                                      n_valid: int | None = None
                                       ) -> tuple[np.ndarray, np.ndarray]:
     """Fast Poincaré search with the int8 gallery row-sharded over
-    ``mesh[axis]`` (4× the ball vectors per chip at pod scale).  Each shard
-    runs the surrogate candidate stage over its rows (fused kernel on TPU,
-    XLA scan elsewhere — surrogate values are cross-shard comparable: the
-    per-row dequant folds into gw2, so scores land on the same absolute
-    scale everywhere); one all_gather merges per-shard pools; the final
+    ``mesh[axis]`` (4× the ball vectors per device).  Each shard runs the
+    surrogate candidate stage over its rows (surrogate values are
+    cross-shard comparable: the per-row dequant folds into gw2, so scores
+    land on the same absolute scale everywhere); one all_gather merges per-shard pools; the final
     exact ordering comes from the f64 host re-rank, exactly as in
-    ``topk_search_poincare_fast``."""
+    ``topk_search_poincare_fast``.  ``n_valid``: real rows of a gallery
+    passed pre-padded (see ``shard_rows``)."""
     from jax import shard_map
 
     q = jnp.asarray(queries, jnp.float32)
-    n = gal.gal_i8.shape[0]
+    rows = gal.gal_i8.shape[0]
+    n = rows if n_valid is None else n_valid
     pool = min(max(k * rerank_mult, k), n)
     n_shards = mesh.shape[axis]
-    per_shard = -(-n // n_shards)
+    per_shard = -(-rows // n_shards)
     padded = per_shard * n_shards
     gal_p = PoincareGallery(
-        jnp.pad(gal.gal_i8, ((0, padded - n), (0, 0))),
-        jnp.pad(gal.gw2, (0, padded - n)),
-        jnp.pad(gal.w, (0, padded - n)),      # zeros mask padded rows
-        jnp.pad(gal.b, (0, padded - n)))
+        jnp.pad(gal.gal_i8, ((0, padded - rows), (0, 0))),
+        jnp.pad(gal.gw2, (0, padded - rows)),
+        jnp.pad(gal.w, (0, padded - rows)),   # zeros mask padded rows
+        jnp.pad(gal.b, (0, padded - rows)))
 
     def shard_fn(qs, g):
         shard_i = jax.lax.axis_index(axis)
@@ -774,19 +669,22 @@ def sharded_topk_search_poincare_fast(mesh: Mesh, queries,
 def sharded_topk_search(mesh: Mesh, queries: jax.Array, gallery: jax.Array,
                         k: int = 10, similarity: Similarity = "cosine",
                         block_size: int = 8192, c: float = 1.0,
-                        axis: str = "data") -> tuple[jax.Array, jax.Array]:
+                        axis: str = "data", n_valid: int | None = None
+                        ) -> tuple[jax.Array, jax.Array]:
     """Exact top-k with the gallery row-sharded over ``mesh[axis]``.
 
     Each shard runs the blockwise scan over its rows and produces [Q, k]
-    local candidates; one all_gather over ICI brings the per-shard candidate
+    local candidates; one all_gather brings the per-shard candidate
     sets together (k·n_shards ≪ G values) and a final top_k merges them.
+    ``n_valid``: real rows of a gallery passed pre-padded (see
+    ``shard_rows``).
     """
     n_shards = mesh.shape[axis]
-    n_gallery = gallery.shape[0]
+    n_gallery = gallery.shape[0] if n_valid is None else n_valid
     # pad so the gallery divides evenly across shards
-    per_shard = -(-n_gallery // n_shards)
+    per_shard = -(-gallery.shape[0] // n_shards)
     padded_n = per_shard * n_shards
-    gallery = jnp.pad(gallery, ((0, padded_n - n_gallery), (0, 0)))
+    gallery = jnp.pad(gallery, ((0, padded_n - gallery.shape[0]), (0, 0)))
 
     from jax import shard_map
 
@@ -813,6 +711,34 @@ def sharded_topk_search(mesh: Mesh, queries: jax.Array, gallery: jax.Array,
     return fn(queries, gallery)
 
 
+def shard_rows(mesh: Mesh, axis: str, *arrays):
+    """Zero-pad each array's rows to a multiple of ``mesh[axis]`` and place
+    it row-sharded over that axis, so no device holds the whole gallery."""
+    from jax.sharding import NamedSharding
+
+    n_shards = mesh.shape[axis]
+    out = []
+    for a in arrays:
+        a = np.asarray(a)
+        pad = -a.shape[0] % n_shards
+        a = np.pad(a, [(0, pad)] + [(0, 0)] * (a.ndim - 1))
+        out.append(jax.device_put(a, NamedSharding(mesh, P(axis))))
+    return out
+
+
+@functools.partial(jax.jit, static_argnames=("n", "similarity", "c"))
+def _prepare_sharded(gallery: jax.Array, n: int, similarity: str,
+                     c: float = 1.0):
+    """Index-build transforms on a row-sharded, zero-padded f32 gallery;
+    rows ≥ n are marked invalid (the outputs keep the input's sharding)."""
+    valid = jnp.arange(gallery.shape[0]) < n
+    if similarity == "poincare":
+        gal = prepare_poincare_gallery(gallery, c)
+        return gal._replace(w=jnp.where(valid, gal.w, 0.0))
+    g16, _ = prepare_cosine_gallery_bf16(gallery)
+    return g16, valid.astype(jnp.float32)
+
+
 class EmbeddingIndex:
     """In-memory exact index with optional mesh sharding; persistence matches
     the reference's ``.npy`` + paths-JSON layout (retrieval.ipynb cell 2
@@ -824,11 +750,16 @@ class EmbeddingIndex:
                  mesh: Mesh | None = None, axis: str = "data",
                  quantized: bool = False):
         """``quantized=True``: the device-resident gallery is per-row int8
-        for BOTH similarities (4× the vectors per chip, 4× less HBM read
-        per search; poincaré adds three f32 affine rows) — and searches
-        over-fetch fused-kernel candidates then re-rank them exactly
+        for BOTH similarities (4× the vectors per device, 4× less memory
+        read per search; poincaré adds three f32 affine rows) — and
+        searches over-fetch int8-scored candidates then re-rank them exactly
         host-side (topk_search_quantized / topk_search_poincare_fast).  The
-        f32 copy stays host-side for re-ranking and persistence."""
+        f32 copy stays host-side for re-ranking and persistence.
+
+        With a ``mesh``, every device-resident gallery is zero-padded and
+        row-sharded over ``mesh[axis]`` at build time (``shard_rows``): no
+        device holds the whole gallery, and the f32 copy stays on the host
+        for the re-rank."""
         if len(names) != int(embeddings.shape[0]):
             raise ValueError(
                 f"names ({len(names)}) and embeddings ({embeddings.shape[0]}) disagree")
@@ -838,32 +769,44 @@ class EmbeddingIndex:
         self.mesh = mesh
         self.axis = axis
         self.quantized = quantized
+        n = int(embeddings.shape[0])
         if quantized:
+            if similarity not in ("cosine", "poincare"):
+                raise ValueError(
+                    "quantized index supports cosine and poincare only")
+            self._emb_np = np.asarray(embeddings, np.float32)
+            self.embeddings = self._emb_np  # host f32 (rerank + save)
             if similarity == "cosine":
-                self._emb_np = np.asarray(embeddings, np.float32)
                 i8, scale = quantize_gallery(self._emb_np)
-                self.emb_i8 = jnp.asarray(i8)
-                self.emb_scale = jnp.asarray(scale)
-                self.embeddings = self._emb_np  # host f32 (rerank + save)
-                return
-            if similarity == "poincare":
+                if mesh is not None:
+                    self.emb_i8, self.emb_scale = shard_rows(mesh, axis, i8,
+                                                             scale)
+                else:
+                    self.emb_i8, self.emb_scale = (jnp.asarray(i8),
+                                                   jnp.asarray(scale))
+            elif mesh is not None:
+                (g,) = shard_rows(mesh, axis, self._emb_np)
+                self.emb_gal = _prepare_sharded(g, n, "poincare", c)
+            else:
                 # device holds an int8 gallery + f32 per-row affine terms
-                # (a quarter of the f32 HBM); searches run the fused
-                # surrogate candidate kernel + exact f64 host re-rank
-                self._emb_np = np.asarray(embeddings, np.float32)
+                # (a quarter of the f32 bytes); searches run the int8
+                # surrogate candidate stage + exact f64 host re-rank
                 self.emb_gal = prepare_poincare_gallery(self._emb_np, c)
-                self.embeddings = self._emb_np
-                return
-            raise ValueError(
-                "quantized index supports cosine and poincare only")
-        # sharded searches pad + distribute the gallery inside shard_map
-        # (sharded_topk_search); keeping one canonical array here avoids a
-        # duplicate padded copy in HBM
+            return
+        if mesh is not None:
+            # host f32 for the re-rank and persistence; the device copies
+            # are row-sharded (the bf16 candidate copy is built with them)
+            self.embeddings = np.asarray(embeddings, np.float32)
+            (self._dev,) = shard_rows(mesh, axis, self.embeddings)
+            if similarity == "cosine":
+                self._gal16, self._gal16_valid = _prepare_sharded(
+                    self._dev, n, "cosine")
+            return
         self.embeddings = jnp.asarray(embeddings)
-        # bf16 candidate copy for the fused exact-cosine path, built lazily
-        # on the first eligible search (top-k ≪ N, single device): +50%
-        # gallery HBM buys an ~order-of-magnitude QPS step over the scan,
-        # and full-ranking-only callers (engine.evaluate) never pay it
+        # bf16 candidate copy for the exact-cosine candidate path, built
+        # lazily on the first search whose pool narrows the gallery (+50%
+        # gallery memory); full-ranking-only callers (engine.evaluate)
+        # never pay it
         self._gal16 = None
         self._gal16_valid = None
 
@@ -877,63 +820,50 @@ class EmbeddingIndex:
         k = min(k, len(self.names))
         if self.quantized:
             if self.similarity == "poincare":
-                # fused candidate kernel + exact re-rank; gallery
+                # int8 candidate stage + exact re-rank; gallery
                 # row-sharded over the mesh when one is attached
-                if (self.mesh is not None
-                        and k * POINCARE_RERANK_MULT < len(self.names)):
+                if self.mesh is not None:
                     vals, idx = sharded_topk_search_poincare_fast(
                         self.mesh, q, self.emb_gal, self._emb_np, k=k,
-                        c=self.c, block_size=block_size, axis=self.axis)
+                        c=self.c, block_size=block_size, axis=self.axis,
+                        n_valid=len(self.names))
                 else:
                     vals, idx = topk_search_poincare_fast(
                         q, self.emb_gal, self._emb_np, k=k, c=self.c,
                         block_size=block_size)
                 return np.asarray(vals), np.asarray(idx)
-            if (self.mesh is not None
-                    and k * DEFAULT_RERANK_MULT < len(self.names)):
+            if self.mesh is not None:
                 vals, idx = sharded_topk_search_quantized(
                     self.mesh, q, self.emb_i8, self.emb_scale, self._emb_np,
-                    k=k, block_size=block_size, axis=self.axis)
+                    k=k, block_size=block_size, axis=self.axis,
+                    n_valid=len(self.names))
             else:
                 vals, idx = topk_search_quantized(
                     q, self.emb_i8, self.emb_scale, self._emb_np, k=k,
                     block_size=block_size)
             return np.asarray(vals), np.asarray(idx)
-        if self.mesh is not None:
-            if (self.similarity == "cosine"
-                    and os.environ.get("PATENT_TPU_FUSED_TOPK", "1") != "0"
-                    and k * DEFAULT_RERANK_MULT < len(self.names)):
-                # fused bf16 candidates per shard + exact re-rank — the
-                # mesh path no longer drops to the blockwise scan for
-                # --quantize-off cosine serving (round-4 gap).  The bf16
-                # copy serves both the fused kernel (TPU) and its scan
-                # twin (elsewhere), so build it whenever the pool
-                # actually narrows the gallery
-                if self._gal16 is None:
-                    self._gal16, self._gal16_valid = \
-                        prepare_cosine_gallery_bf16(self.embeddings)
+        narrows = candidate_pool_narrows(len(self.names), k)
+        if self.similarity == "cosine" and narrows:
+            # bf16 candidates + exact f32 re-rank (per shard when a mesh is
+            # attached) — identical ordering to the scan
+            if self._gal16 is None:
+                self._gal16, self._gal16_valid = \
+                    prepare_cosine_gallery_bf16(self.embeddings)
+            if self.mesh is not None:
                 vals, idx = sharded_topk_search_cosine_fast(
                     self.mesh, q, self._gal16, self._gal16_valid,
                     self.embeddings, k=k, block_size=block_size,
                     axis=self.axis)
-                return np.asarray(vals), np.asarray(idx)
-            vals, idx = sharded_topk_search(self.mesh, q, self.embeddings, k=k,
+            else:
+                vals, idx = topk_search_cosine_fast(
+                    q, self._gal16, self._gal16_valid, self.embeddings, k=k,
+                    block_size=block_size)
+        elif self.mesh is not None:
+            vals, idx = sharded_topk_search(self.mesh, q, self._dev, k=k,
                                             similarity=self.similarity,
                                             block_size=block_size, c=self.c,
-                                            axis=self.axis)
-        elif (self.similarity == "cosine"
-                and fused_cosine_eligible(len(self.names), k)):
-            # fused bf16 candidate stage + exact f32 re-rank — identical
-            # ordering to the scan, ~order-of-magnitude faster at index
-            # scale.  Eligibility checked HERE so the +50%-HBM bf16 copy
-            # is never built just to fall back to the scan (CPU-only
-            # deployment, PATENT_TPU_FUSED_TOPK=0, unsupported shape)
-            if self._gal16 is None:
-                self._gal16, self._gal16_valid = \
-                    prepare_cosine_gallery_bf16(self.embeddings)
-            vals, idx = topk_search_cosine_fast(
-                q, self._gal16, self._gal16_valid, self.embeddings, k=k,
-                block_size=block_size)
+                                            axis=self.axis,
+                                            n_valid=len(self.names))
         else:
             vals, idx = topk_search(q, self.embeddings, k=k,
                                     similarity=self.similarity,

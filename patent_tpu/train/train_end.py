@@ -43,15 +43,9 @@ def init_end_to_end(vision_config: VisionConfig, cfg: EndToEndConfig,
                     label_num: int, clip_params: Any | None = None,
                     seed: int = 0):
     """Build ((vit, hyp), params, optimizer, opt_state)."""
-    # trainable fused attention kernel (custom VJP), +14% on the train step;
-    # CPU falls back to the differentiable XLA path
-    # fused_mlp: Pallas fwd+bwd MLP block — step-time neutral, ~3× less
-    # activation memory (ops/bf16_mlp_grad.py, measured in
-    # tools/ab_mlp_grad.py on the finetune twin of this step)
-    # cls_last: gradient-exact CLS-only last layer (models/vit.
-    # _cls_last_layer) — the other S−1 rows of the last block feed nothing
-    vit = VisionTransformer(vision_config, dtype=jnp.bfloat16,
-                            fused_block=True, fused_mlp=True, cls_last=True)
+    # cls_last: gradient-exact CLS-only last layer — the other S−1 rows
+    # of the last block feed nothing
+    vit = VisionTransformer(vision_config, dtype=jnp.bfloat16, cls_last=True)
     key = jax.random.key(seed)
     dummy = jnp.zeros((1, vision_config.image_size, vision_config.image_size, 3))
     vit_params = clip_params if clip_params is not None else \

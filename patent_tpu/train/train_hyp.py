@@ -1,6 +1,6 @@
 """train_hyp — the flagship hyperbolic retrieval training engine.
 
-TPU-native re-design of ``train_hyperbolic_retrieval_model``
+Re-design of ``train_hyperbolic_retrieval_model``
 (reference src/train.py:1047-1757):
 
 * ONE jitted train step computes every loss term —

@@ -13,28 +13,18 @@ import dataclasses
 import json
 from typing import Sequence
 
-# Named serving profiles (``--profile``): the official resolution of
-# BASELINE.json's 10k-img/s/chip north star.  The exact int8 tower is
-# measured at ~95% of its ~8.15k shape-intrinsic ceiling on v5e (README
-# "speed-of-light" note: the residual is K=64/N=65 head-dot padding +
-# head-loop serialization, not recoverable by op-level restructuring), so
-# 10k at FULL fidelity is not reachable on this hardware — the framework
-# instead ships the dial as named, quality-pinned configs:
+# Named serving profiles (``--profile``): the speed/fidelity dial as named,
+# quality-pinned configs.  Speed on the H100 is not measured yet; the
+# quality numbers are the views-corpus ranking deltas pinned in
+# tests/golden_pipeline_metrics.json (re-pinned on every golden run):
 #
-#   exact        int8 PTQ, all 197 tokens — 7.7k img/s, min feature cosine
-#                0.99978 vs bf16; ranking deltas ≈ int8_delta golden
-#                (mAP −0.004, R@10 −0.003 on the views corpus).
-#   recommended  int8 + ink-mass keep=175 — 8.6k img/s at feature cosine
-#                ≥ 0.99915; views-corpus ranking deltas golden-pinned
-#                (pruned_kt57_delta: mAP −0.022, R@10 −0.050).
-#   turbo        int8 + keep=127 (S=128: exact MXU tiles) — 12.3k img/s,
-#                BEATS the 10k north star as an explicitly-approximate
-#                mode; cosine 0.99131, deltas pinned (pruned_kt41_delta:
-#                mAP −0.053, R@10 −0.072).
+#   exact        int8 PTQ, all 197 tokens — ranking deltas ≈ int8_delta.
+#   recommended  int8 + ink-mass keep=175 — pruned_kt57_delta.
+#   turbo        int8 + keep=127 — an explicitly approximate mode,
+#                pruned_kt41_delta.
 #
-# Feature-cosine marketing alone overstates pruning fidelity — quote the
-# ranking deltas alongside (VERDICT r4); both live in
-# tests/golden_pipeline_metrics.json and re-pin on every golden run.
+# Feature-cosine alone overstates pruning fidelity — quote the ranking
+# deltas alongside.
 SERVING_PROFILES: dict[str, dict] = {
     "exact": {"quantize": True, "keep_tokens": None},
     "recommended": {"quantize": True, "keep_tokens": 175},
@@ -118,15 +108,7 @@ class GCNTrainConfig:
 
 @dataclasses.dataclass
 class ClipFinetuneConfig:
-    """CLIP fine-tune with graph alignment (retrieval.ipynb cell 20).
-
-    Note: the fused-attention tower clamps exp2-domain attention scores at
-    +80 (≈55 nats) and zeroes the gradient of saturated scores
-    (ops/flash_attention.SCORE_CLAMP_HI).  Healthy logits sit 3-5× below
-    that, but if fine-tuning drives attention entropy collapse, learning
-    through saturated heads silently stops — probe periodically with
-    ``ops.flash_attention.attention_saturation`` if val loss plateaus
-    unexpectedly."""
+    """CLIP fine-tune with graph alignment (retrieval.ipynb cell 20)."""
 
     epochs: int = 8
     batch_size: int = 64           # anchors per batch (2B images on device)
@@ -149,25 +131,15 @@ class ClipFinetuneConfig:
     # opt-in ink-mass token selection DURING fine-tuning (models/vit.py
     # keep_tokens): differentiable (gather passes gradients; the top-k
     # indices are data-dependent constants, like maxpool), same params as
-    # the full tower, 1.35× faster steps at keep=127 on ViT-B/16
-    # (1,014 vs 753 img/s fwd+bwd, tools/microbench.py finetune).  The
-    # served tower's keep_tokens need not match — tools/pruning_quality_b16
-    # shows full↔pruned feature agreement — but training and serving
-    # pruned the same way is the consistent production setup.
+    # the full tower, fewer tokens per step.  The served tower's
+    # keep_tokens need not match — tools/pruning_quality_b16 shows
+    # full↔pruned feature agreement — but training and serving pruned the
+    # same way is the consistent production setup.
     keep_tokens: int | None = None
-    # trainable fused MLP block (Pallas forward AND backward, the hidden
-    # recomputed in VMEM instead of saved — ops/bf16_mlp_grad.py).
-    # Measured on v5e (tools/ab_mlp_grad.py): step time NEUTRAL (51.9 vs
-    # 52.4 ms at 32 pairs; loss rel dev 3e-6) but activation memory 2.6-3×
-    # smaller (compiled temp 2,080→789 MiB at 32 pairs, 8,303→2,728 MiB at
-    # 128 pairs) — the dial that lets the fine-tune batch grow ~3× per chip
-    fused_mlp: bool = True
-    # trainable CLS-only last layer (models/vit._cls_last_layer): only the
-    # CLS row of the last block feeds the projection, so the other S−1
+    # CLS-only last layer (models/vit.transformer_layer cls_only): only
+    # the CLS row of the last block feeds the projection, so the other S−1
     # rows' out-proj/MLP forward AND backward are dead work — dropping
-    # them is gradient-EXACT (their cotangents are identically zero).
-    # Measured on v5e (tools/ab_cls_last_train.py, two sessions): 52.2-52.3
-    # → 46.4-47.7 ms/step at 32 pairs (−9 to −11%), loss rel dev ≤ 1.5e-5
+    # them is gradient-EXACT (their cotangents are identically zero)
     cls_last: bool = True
 
 

@@ -88,13 +88,12 @@ def test_retrieve_api(trained):
     assert all(s <= 0 for s in scores)
 
 
-def test_quantized_engine_matches_exact(trained, monkeypatch):
-    """quantized=True (fused Poincaré candidates + exact re-rank, interpret
-    mode via =force) returns the exact engine's rankings on TRAINED ball
-    embeddings — the serving activation statistics, not synthetic noise."""
+def test_quantized_engine_matches_exact(trained):
+    """quantized=True (int8 Poincaré candidates + exact re-rank) returns
+    the exact engine's rankings on TRAINED ball embeddings — the serving
+    activation statistics, not synthetic noise."""
     records, graph, td, model, _init, best_params, names = trained
     q_rows, g_rows, _gt = _split_eval(records, td, names)
-    monkeypatch.setenv("PATENT_TPU_FUSED_TOPK", "force")
     fast = HyperbolicRetrievalEngine(
         model, best_params, td.x_figures[g_rows],
         [names[g] for g in g_rows], batch_size=64, quantized=True)

@@ -133,7 +133,7 @@ def test_cache_second_pass_speedup(corpus, tmp_path):
     first = one_pass()
     # best-of-3 cached passes: a transient load spike on a shared CI box
     # must not fail the mechanism assertion (observed flake: a concurrent
-    # TPU bench during the suite run halved one cached pass)
+    # benchmark during the suite run halved one cached pass)
     second = max(one_pass() for _ in range(3))
     assert cache.hits >= len(corpus)
     # tiny corpus on a loaded CI box: demand a clear win, not a ratio pin

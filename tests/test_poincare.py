@@ -292,7 +292,7 @@ def test_dist_monotone_in_curvature(rng):
 
 def test_dist_gradient_finite_at_coincident_points(rng):
     """Backward through d(x, x) must be finite — the figure-pair loss hits
-    this exact singular point via self-pairs (TPU f32 NaN regression)."""
+    this exact singular point via self-pairs (f32 NaN regression)."""
     x = jnp.asarray(rand_ball(rng, 8, 16, 2.0, scale=0.69), jnp.float32)
 
     def loss(a):

@@ -5,8 +5,7 @@ carry no ink.  ``keep_tokens=K`` serves only the K darkest patches (+CLS),
 with no new parameters — any trained checkpoint can be served pruned.
 These tests pin the selection mechanics; the QUALITY of pruned serving is
 measured on the views corpus in tests/test_finetune_lift.py (same trained
-tower, full vs pruned battery) and the throughput/fidelity on real TPU in
-bench.py extras.
+tower, full vs pruned battery).
 """
 
 import argparse

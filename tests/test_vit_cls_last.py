@@ -1,10 +1,10 @@
-"""Trainable CLS-only last layer (models/vit._cls_last_layer).
+"""Trainable CLS-only last layer (models/vit.transformer_layer cls_only).
 
 Only row 0 of the last block feeds the projection head, so dropping the
 other rows' out-proj/MLP work is gradient-EXACT: the dropped rows'
 cotangents are identically zero.  These tests pin that claim — same param
 tree, same features, same gradients as the full tower — on the CPU XLA
-paths (the TPU step-time win is measured in tools/ab_cls_last_train.py).
+paths.
 """
 
 import jax
@@ -79,14 +79,12 @@ def test_keep_tokens_composes(setup):
 
 
 def test_bf16_finetune_tower_parity():
-    """The production fine-tune tower config (bf16, fused_block+fused_mlp
-    CPU fallbacks) stays feature-close with cls_last on."""
+    """The production fine-tune tower config (bf16) stays feature-close
+    with cls_last on."""
     rng = np.random.default_rng(11)
     x = jnp.asarray(rng.random((4, 32, 32, 3)), jnp.float32)
-    base = VisionTransformer(VIT_TINY, dtype=jnp.bfloat16, fused_block=True,
-                             fused_mlp=True)
-    cls = VisionTransformer(VIT_TINY, dtype=jnp.bfloat16, fused_block=True,
-                            fused_mlp=True, cls_last=True)
+    base = VisionTransformer(VIT_TINY, dtype=jnp.bfloat16)
+    cls = VisionTransformer(VIT_TINY, dtype=jnp.bfloat16, cls_last=True)
     params = base.init(jax.random.key(0), x)["params"]
     f1 = np.asarray(base.apply({"params": params}, x), np.float32)
     f2 = np.asarray(cls.apply({"params": params}, x), np.float32)

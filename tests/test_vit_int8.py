@@ -6,17 +6,13 @@ import jax.numpy as jnp
 import pytest
 
 from patent_tpu.models.vit import VIT_TINY, VisionTransformer
-from patent_tpu.models.vit_int8 import (
-    Int8VisionTransformer,
-    _quantize_weight,
-    int8_dense,
-    quantize_vit_params,
-)
+from patent_tpu.models.vit_int8 import Int8VisionTransformer, quantize_vit_params
+from patent_tpu.ops.quant_matmul import quant_dense, quantize_weight
 
 
 def test_quantize_weight_roundtrip(rng):
     w = jnp.asarray(rng.standard_normal((64, 32)), jnp.float32)
-    q, scale = _quantize_weight(w)
+    q, scale = quantize_weight(w)
     assert q.dtype == jnp.int8
     assert scale.shape == (32,)
     recon = np.asarray(q, np.float32) * np.asarray(scale)
@@ -30,8 +26,8 @@ def test_int8_dense_matches_f32(rng):
     x = jnp.asarray(rng.standard_normal((8, 64)), jnp.float32)
     w = jnp.asarray(rng.standard_normal((64, 32)) * 0.1, jnp.float32)
     b = jnp.asarray(rng.standard_normal(32) * 0.01, jnp.float32)
-    wq, ws = _quantize_weight(w)
-    got = int8_dense(x, wq, ws, b)
+    wq, ws = quantize_weight(w)
+    got = quant_dense(x, wq, ws, b)
     want = x @ w + b
     rel = np.abs(np.asarray(got) - np.asarray(want)) / (
         np.abs(np.asarray(want)) + 1e-2)
